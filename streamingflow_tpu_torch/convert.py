@@ -1,0 +1,123 @@
+"""Weights of the JAX package -> the port's state_dict.
+
+The port's submodules carry the flax variable paths as names, so each torch
+tensor ``a.b.Conv_0.weight`` has one flax leaf ``a/b/Conv_0/kernel`` and the
+layout changes by rule:
+
+  Conv2d / depthwise  kernel (kH, kW, I/g, O)      -> weight (O, I/g, kH, kW)
+  Conv3d              kernel (kT, kH, kW, I, O)    -> weight (O, I, kT, kH, kW)
+  Linear              kernel (I, O)                -> weight (O, I)
+  BatchNorm           params scale / bias          -> weight / bias
+                      batch_stats mean / var       -> running_mean / running_var
+  LayerNorm           scale / bias                 -> weight / bias
+  raw parameters      *_kernel (3, 3, I, O)        -> (O, I, 3, 3) (GRUGates'
+                      fused gates kernel stays fused); others as they are
+
+Variables come as numpy arrays: ``{'params': {...}, 'batch_stats': {...}}``
+nested dicts.  The conversion raises if a JAX leaf is left unconsumed or a
+torch parameter or buffer is left unassigned (BatchNorm's
+``num_batches_tracked`` is torch's own training counter and is set to 0).
+BatchNorm eps is a constructor argument of each torch module and matches the
+flax module's (1e-3 in EfficientNet and the pillar ladder, 1e-5 elsewhere);
+flax BN momentum m is torch momentum 1 - m.
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def flatten(tree: Mapping, prefix: str = '') -> Dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        key = f'{prefix}/{k}' if prefix else str(k)
+        if isinstance(v, Mapping):
+            out.update(flatten(v, key))
+        else:
+            out[key] = np.asarray(v)
+    return out
+
+
+def _kernel_to_torch(k: np.ndarray) -> np.ndarray:
+    """flax (spatial..., I, O) -> torch (O, I, spatial...)."""
+    nd = k.ndim
+    return np.transpose(k, (nd - 1, nd - 2, *range(nd - 2)))
+
+
+def _leaf_rule(module: nn.Module, name: str):
+    """(collection, flax leaf name, transform) for torch tensor ``name``."""
+    if isinstance(module, (nn.Conv2d, nn.Conv3d)):
+        return {'weight': ('params', 'kernel', _kernel_to_torch),
+                'bias': ('params', 'bias', None)}[name]
+    if isinstance(module, nn.Linear):
+        return {'weight': ('params', 'kernel', np.transpose),
+                'bias': ('params', 'bias', None)}[name]
+    if isinstance(module, nn.modules.batchnorm._BatchNorm):
+        return {'weight': ('params', 'scale', None),
+                'bias': ('params', 'bias', None),
+                'running_mean': ('batch_stats', 'mean', None),
+                'running_var': ('batch_stats', 'var', None)}[name]
+    if isinstance(module, (nn.LayerNorm, nn.GroupNorm)):
+        return {'weight': ('params', 'scale', None),
+                'bias': ('params', 'bias', None)}[name]
+    if name.endswith('kernel'):
+        return 'params', name, _kernel_to_torch
+    return 'params', name, None
+
+
+def flax_to_state_dict(model: nn.Module, variables: Mapping
+                       ) -> Dict[str, torch.Tensor]:
+    """Map a JAX variable tree onto ``model``'s state_dict (CPU tensors in
+    each target's dtype).  Raises on any unconsumed or missing leaf, or a
+    shape mismatch."""
+    leaves = {col: flatten(variables.get(col, {}))
+              for col in ('params', 'batch_stats')}
+    extra = set(variables) - set(leaves)
+    if extra:
+        raise KeyError(f'unknown variable collections: {sorted(extra)}')
+    used = {col: set() for col in leaves}
+    target = model.state_dict()
+    out, missing = {}, []
+    for mod_name, module in model.named_modules():
+        tensors = list(module.named_parameters(recurse=False)) + \
+            list(module.named_buffers(recurse=False))
+        for name, tensor in tensors:
+            if tensor is None:
+                continue
+            full = f'{mod_name}.{name}' if mod_name else name
+            if name == 'num_batches_tracked':
+                out[full] = torch.zeros_like(tensor, device='cpu')
+                continue
+            col, leaf, fn = _leaf_rule(module, name)
+            path = '/'.join([*mod_name.split('.'), leaf]) if mod_name \
+                else leaf
+            if path not in leaves[col]:
+                missing.append(f'{col}:{path} (for {full})')
+                continue
+            value = leaves[col][path]
+            used[col].add(path)
+            if fn is not None:
+                value = fn(value)
+            if tuple(value.shape) != tuple(tensor.shape):
+                raise ValueError(f'{col}:{path} has shape {value.shape}, '
+                                 f'{full} needs {tuple(tensor.shape)}')
+            out[full] = torch.from_numpy(np.array(value)).to(
+                target[full].dtype)
+    unused = [f'{col}:{p}' for col in leaves
+              for p in sorted(set(leaves[col]) - used[col])]
+    if missing or unused:
+        raise KeyError('JAX -> torch conversion incomplete:\n'
+                       + ''.join(f'  torch tensor without a JAX leaf: {m}\n'
+                                 for m in missing)
+                       + ''.join(f'  JAX leaf not consumed: {u}\n'
+                                 for u in unused))
+    return out
+
+
+def load_flax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
+    """Load a JAX variable tree into ``model`` in place (strict)."""
+    model.load_state_dict(flax_to_state_dict(model, variables), strict=True)
+    return model
