@@ -15,14 +15,21 @@ the CUDA toolkit.  Phases, each printing one JSON line:
   4. patch_pool  kernel vs plain version at flagship shapes (3 frames x 6
                  cameras x 48 depth bins x 28 x 60 x 64 from the synthetic
                  calibration) and a forced-overflow case
-  5. tiny        a tiny camera+LiDAR forward on the card (kernels) vs the
+  5. winfuse     K3 vs plain version at flagship geometry (the 5 clouds of
+                 one request voxelized into columns: conv_input 5->16 and
+                 stage 1 16->16 at nz 41, stage 2 32->32 at nz 21 behind the
+                 plain down1, bf16 and fp32) and a forced-drop plan
+  6. tiny        a tiny camera+LiDAR forward on the card (kernels) vs the
                  same weights on the CPU (plain versions)
-  6. forward     the flagship forward (bench.py's full_cfg: 6 cameras at
+  7. tiny_spconv the same on the spconv8x backbone ('winfuse')
+  8. forward     the flagship forward (bench.py's full_cfg: 6 cameras at
                  224x480 with EfficientNet-B4, 5 clouds of 80k points on the
                  pillar8x backbone, 200x200 BEV, variable-step GRU-ODE,
                  3 past frames -> 4 futures) in bf16, answering --requests
                  requests with kernel launch counts read around them
-  7. kernels     every kernel of the port with its launches, error and times
+  9. forward_spconv  the same on the spconv8x backbone (full_cfg with
+                 STREAMINGFLOW_BENCH_BACKBONE=spconv8x, ZFORM=winfuse)
+ 10. kernels     every kernel of the port with its launches, error and times
 
 The last line is {"ok": true, "device": {...}}.  Any failed phase raises, so
 the script exits non-zero with no result; so does a machine without CUDA,
@@ -40,9 +47,10 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM peaks (NVIDIA data sheet, at 700 W): HBM bytes/s, fp32 FLOP/s
-# outside the tensor cores
+# outside the tensor cores, dense bf16 FLOP/s of the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 
 
 def emit(obj):
@@ -227,6 +235,208 @@ def phase_patch_pool(cfg, dev, results):
           'bound_us': bound_ms * 1e3, 'bytes': n_bytes})
 
 
+def _winfuse_case(name, feats, geo, w, nz, zmask=None, reps=10):
+    """K3 vs its plain version on one input; times, bytes and FLOPs.
+
+    FLOPs: ``flops_dense_z`` counts every z of every found tap (what the
+    fused layout computes), ``flops`` what these inputs need: with
+    ``zmask`` (the features are zero at inactive sites, as on the main
+    path) only the products of active input sites."""
+    import torch
+    from streamingflow_tpu_torch.ops import winfuse as WF
+    got = WF.subm_conv_winfuse(feats, geo.nbr, geo.found, w, nz)
+    want = WF.subm_conv_plain(feats, geo.nbr, geo.found, w, nz)
+    torch.cuda.synchronize()
+    bf16 = feats.dtype == torch.bfloat16
+    scale = float(want.float().abs().max())
+    # fp32: sums in another order; bf16: one rounding of an fp32 sum that
+    # differs in order may land one bf16 step away (K1's bar)
+    tol = (dict(rtol=2 ** -7, atol=1e-2) if bf16 else
+           dict(rtol=1e-5, atol=1e-5 * scale))
+    check_close(f'winfuse {name}', got, want, **tol)
+    cin, cout = w.shape[1], w.shape[2]
+    n_found = int(geo.found.sum())
+    flops_dense = 2 * cin * cout * n_found * (3 * nz - 2)
+    if zmask is None:
+        flops = flops_dense
+    else:
+        # products per active input site: its valid output z (2 at the edges)
+        per_z = torch.full((nz,), 3, device=feats.device)
+        per_z[0] = per_z[-1] = 2
+        per_col = (zmask.reshape(-1, nz) * per_z).sum(-1)
+        nbr = geo.nbr.long()
+        flops = 2 * cin * cout * int((per_col[nbr] * geo.found).sum())
+    es = feats.element_size()
+    n_bytes = (feats.numel() + got.numel() + w.numel()) * es + \
+        geo.nbr.numel() * 4 + geo.found.numel()
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = flops / (BF16_FLOPS if bf16 else FP32_FLOPS)
+    ms = cuda_ms(lambda: WF.subm_conv_winfuse(feats, geo.nbr, geo.found, w,
+                                              nz), reps=reps)
+    plain_ms = cuda_ms(lambda: WF.subm_conv_plain(feats, geo.nbr, geo.found,
+                                                  w, nz), reps=3, warmup=1)
+    return dict(case=name, dtype=str(feats.dtype).split('.')[-1], nz=nz,
+                cin=cin, cout=cout, rows=geo.nbr.shape[1],
+                found_taps=n_found, max_abs_err=max_err(got, want)[0],
+                max_abs_want=scale, tolerance=tol, kernel_ms=ms,
+                twin_ms=plain_ms, bytes=n_bytes, flops=flops,
+                flops_dense_z=flops_dense,
+                bound_us=max(t_bytes, t_ops) * 1e6,
+                bound_by='bytes' if t_bytes >= t_ops else 'operations')
+
+
+def phase_winfuse(dev, results):
+    """K3 at the flagship spconv8x geometry of one request (5 clouds of 80k
+    points), stacked as the main path launches it, and a forced drop."""
+    import torch
+    from streamingflow_tpu_torch.data import flagship_config, make_batch
+    from streamingflow_tpu_torch.models import lidar_encoder as L
+    from streamingflow_tpu_torch.ops import sparse_columns as SC
+    from streamingflow_tpu_torch.ops import winfuse as WF
+    cfg = flagship_config(backbone='spconv8x')
+    se = cfg.MODEL.SPARSE_ENCODER
+    pts = torch.from_numpy(make_batch(cfg, 1, seed=0, n_points=80000)
+                           ['points'][0]).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bf16 = torch.bfloat16
+
+    def rand(*shape, dtype=bf16, scale=1.0):
+        return (torch.randn(*shape, device=dev, generator=gen) * scale).to(
+            dtype)
+
+    def weights(cin, cout, dtype=bf16):
+        return rand(27, cin, cout, dtype=dtype, scale=(27 * cin) ** -0.5)
+
+    shape1 = tuple(se.SPARSE_SHAPE)
+    cs1 = L.column_sets(pts, (pts[..., :3] != 0).any(-1), se, bf16)
+    geo1 = L.column_geometry(cs1, shape1[:2], se)
+    n, cap1 = cs1.col_ids.shape
+    nz1 = shape1[2]
+    # stage-2 columns behind the plain strided conv down1
+    feats16 = SC.mask_fused(rand(n, cap1, nz1 * 16), cs1.zmask)
+    cs2 = SC.stack_sets([SC.sparse_conv_columns(
+        SC.cloud(cs1._replace(feats=feats16), i), weights(16, 32),
+        (3, 3, 3), (2, 2, 2), (1, 1, 1), shape1, se.COLUMN_CAPS[1])[0]
+        for i in range(n)])
+    shape2 = SC.conv_out_shape(shape1, (3, 3, 3), (2, 2, 2), (1, 1, 1))
+    geo2 = L.column_geometry(cs2, shape2[:2], se)
+    nz2 = shape2[2]
+    cap2 = cs2.col_ids.shape[1]
+
+    def path_like(cs, nz, c):
+        return SC.mask_fused(rand(n, cs.col_ids.shape[1], nz * c),
+                             cs.zmask).reshape(-1, nz * c)
+
+    cases = [
+        _winfuse_case('conv_input', SC.mask_fused(
+            cs1.feats, cs1.zmask).reshape(n * cap1, -1), geo1,
+            weights(5, 16), nz1, cs1.zmask),
+        _winfuse_case('stage1', path_like(cs1, nz1, 16), geo1,
+                      weights(16, 16), nz1, cs1.zmask),
+        _winfuse_case('stage2', path_like(cs2, nz2, 32), geo2,
+                      weights(32, 32), nz2, cs2.zmask),
+        _winfuse_case('stage1_fp32_dense', rand(n * cap1, nz1 * 16,
+                                                dtype=torch.float32),
+                      geo1, weights(16, 16, torch.float32), nz1, reps=3),
+        _winfuse_case('stage2_fp32_dense', rand(n * cap2, nz2 * 32,
+                                                dtype=torch.float32),
+                      geo2, weights(32, 32, torch.float32), nz2, reps=3),
+    ]
+    # forced drop: a window of one block plus 8 rows and no residual
+    # blocks; the drop count on the card equals the count on the CPU
+    nbrs, founds, drops, cpu_drops = [], [], [], []
+    for i in range(n):
+        cmap = SC.build_column_map(SC.cloud(cs2, i), shape2[:2])
+        found, dropped = WF.fused_found(cmap, se.WINDOW_BLOCK,
+                                        se.WINDOW_BLOCK + 8, 0)
+        cmap_cpu = SC.ColumnMap(cmap.nbr.cpu(), cmap.found.cpu())
+        cpu_drops.append(int(WF.fused_found(cmap_cpu, se.WINDOW_BLOCK,
+                                            se.WINDOW_BLOCK + 8, 0)[1]))
+        nbrs.append(cmap.nbr + i * cap2)
+        founds.append(found)
+        drops.append(int(dropped))
+    if drops != cpu_drops or min(drops) <= 0:
+        raise AssertionError(f'winfuse forced drop: card {drops}, CPU '
+                             f'{cpu_drops}')
+    geo_drop = L.ColumnGeo(torch.cat(nbrs, 1).int(), torch.cat(founds, 1),
+                           None)
+    cases.append(_winfuse_case('stage2_drop', rand(n * cap2, nz2 * 32),
+                               geo_drop, weights(32, 32), nz2, reps=3))
+    main = cases[2]
+    ms = {c['case']: c['kernel_ms'] for c in cases}
+    results['winfuse'] = dict(
+        max_abs_err=main['max_abs_err'], ms=main['kernel_ms'],
+        plain_ms=main['twin_ms'], library_ms=None,
+        bound_ms=main['bound_us'] / 1e3, bound_by=main['bound_by'])
+    emit({'phase': 'winfuse', 'clouds': n,
+          'active_columns': {'stage1': int(cs1.col_mask.sum()),
+                             'stage2': int(cs2.col_mask.sum())},
+          'active_sites': {'stage1': int(cs1.zmask.sum()),
+                           'stage2': int(cs2.zmask.sum())},
+          'column_slots': {'stage1': n * cap1, 'stage2': n * cap2},
+          'n_dropped': {'stage1': geo1.n_dropped.tolist(),
+                        'stage2': geo2.n_dropped.tolist(),
+                        'forced': drops},
+          'cases': cases,
+          'forecast_ms_est': ms['conv_input'] + 4 * ms['stage1']
+          + 4 * ms['stage2'],
+          'library_call': 'none: no one call computes this function'})
+
+
+def _tiny_spconv_config():
+    """tiny_config on the spconv8x backbone, with column caps and a window
+    plan sized to it (tiny_config keeps the flagship's 65536 slots)."""
+    from streamingflow_tpu_torch.data import tiny_config
+    cfg = tiny_config()
+    cfg.MODEL.MODALITY.USE_LIDAR = True
+    cfg.MODEL.ENCODER.OUT_CHANNELS = 64
+    cfg.MODEL.BEV_POOL_BACKEND = 'pallas_patch'
+    cfg.PROBABILISTIC.ENABLED = False
+    cfg.MODEL.LIDAR.BACKBONE = 'spconv8x'
+    se = cfg.MODEL.SPARSE_ENCODER
+    se.ENGINE = 'column'
+    se.Z_FORMULATION = 'winfuse'
+    se.COLUMN_CAPS = [512, 768, 512, 256]
+    se.WINDOW_BLOCK = 16
+    se.WINFUSE_WINDOW = 64
+    return cfg
+
+
+def phase_tiny_spconv(dev):
+    """Tiny camera + spconv8x forecast: card (K2, K3) vs CPU (plain
+    versions), same weights and inputs, fp32."""
+    import torch
+    import streamingflow_tpu_torch as P
+    from streamingflow_tpu_torch.data import make_batch
+    from streamingflow_tpu_torch.ops import patch_pool as PP
+    from streamingflow_tpu_torch.ops import winfuse as WF
+    cfg = _tiny_spconv_config()
+    cpu_model = P.build_model(cfg, device='cpu', seed=0)
+    gpu_model = P.build_model(cfg, device=dev)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    batch = make_batch(cfg, 1, seed=1, n_points=512)
+    k2, k3 = PP.launches, WF.launches
+    with torch.no_grad():
+        want = cpu_model(**P.batch_to_model_args(batch, cfg, device='cpu'))
+        got = gpu_model(**P.batch_to_model_args(batch, cfg, device=dev))
+    torch.cuda.synchronize()
+    if PP.launches == k2 or WF.launches == k3:
+        raise AssertionError('tiny spconv8x forward did not launch K2 and K3')
+    errs = {}
+    for k, w in want.items():
+        if w is None:
+            continue
+        g = got[k].cpu()
+        if not torch.isfinite(g).all():
+            raise AssertionError(f'tiny spconv8x forward: {k} not finite')
+        errs[k] = max_err(g, w)[0]
+        check_close(f'tiny spconv8x forward {k}', g, w, rtol=5e-3, atol=5e-3)
+    emit({'phase': 'tiny_spconv', 'max_abs_err': errs,
+          'launches': {'patch_pool': PP.launches - k2,
+                       'winfuse': WF.launches - k3},
+          'tolerance': dict(rtol=5e-3, atol=5e-3)})
+
+
 def phase_tiny(dev):
     """Tiny camera+LiDAR forecast: card (kernels) vs CPU (plain versions),
     same weights and inputs, fp32, deterministic."""
@@ -267,19 +477,31 @@ def phase_tiny(dev):
 
 
 def phase_forward(cfg, dev, n_requests, card, n_points=80000):
+    """The flagship forward on cfg's LiDAR backbone, every kernel count set
+    to 0 before the requests and read after them."""
     import torch
     import streamingflow_tpu_torch as P
     from streamingflow_tpu_torch.data import make_batch
     from streamingflow_tpu_torch.ops import bin_sum as B
     from streamingflow_tpu_torch.ops import patch_pool as PP
+    from streamingflow_tpu_torch.ops import winfuse as WF
     from streamingflow_tpu_torch.data.synthetic import n_lidar_sweeps
     model = P.build_model(cfg, device=dev, dtype=torch.bfloat16, seed=0)
+    spconv = cfg.MODEL.LIDAR.BACKBONE == 'spconv8x'
     n_clouds = n_lidar_sweeps(cfg)
     s = cfg.TIME_RECEPTIVE_FIELD
     t = s + cfg.N_FUTURE_FRAMES
     nx, ny = (int(v) for v in model.bev_dimension[:2])
     n = len(cfg.IMAGE.NAMES)
     d, fh, fw = model.frustum.shape[:3]
+    counters = {'bin_sum': B, 'patch_pool': PP, 'winfuse': WF}
+    # pillar8x: one bin-sum a cloud; spconv8x: one K3 launch over the
+    # stacked clouds per submanifold conv (conv_input and the two convs of
+    # each block of stages 1 and 2)
+    se = cfg.MODEL.SPARSE_ENCODER
+    blocks = [len(c) - 1 for c in se.ENCODER_CHANNELS[:2]]
+    expect = ({'bin_sum': 0, 'winfuse': 1 + 2 * sum(blocks)} if spconv
+              else {'bin_sum': n_clouds, 'winfuse': 0})
 
     def request(seed):
         batch = make_batch(cfg, 1, seed=seed, n_points=n_points)
@@ -294,14 +516,20 @@ def phase_forward(cfg, dev, n_requests, card, n_points=80000):
         return out, time.perf_counter() - t0
 
     request(100)                                  # warm-up, not counted
-    B.launches = PP.launches = 0
-    lat, drops, per_request = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for m in counters.values():
+        m.launches = 0
+    lat, drops, per_request, n_dropped = [], [], [], []
     for seed in range(1, n_requests + 1):
-        k1, k2 = B.launches, PP.launches
+        before = {k: m.launches for k, m in counters.items()}
         out, dt = request(seed)
-        per_request.append((B.launches - k1, PP.launches - k2))
+        per_request.append({k: m.launches - before[k]
+                            for k, m in counters.items()})
         lat.append(dt)
         drops.append(PP.last_drops.tolist())
+        if spconv:
+            n_dropped.append({k: v.tolist() for k, v in
+                              model.lidar_encoder.last_n_dropped.items()})
         want = {'segmentation': (1, t, nx, ny, 2),
                 'instance_center': (1, t, nx, ny, 1),
                 'instance_offset': (1, t, nx, ny, 2),
@@ -314,17 +542,22 @@ def phase_forward(cfg, dev, n_requests, card, n_points=80000):
                                      f'{shape}')
             if not torch.isfinite(out[k]).all():
                 raise AssertionError(f'{k}: values not finite')
-    launches = {'bin_sum': B.launches, 'patch_pool': PP.launches}
-    for i, (a, b) in enumerate(per_request):
-        if a != n_clouds or b < 1:
-            raise AssertionError(f'request {i}: bin_sum launched {a} times '
-                                 f'(want {n_clouds}), patch_pool {b}')
-    emit({'phase': 'forward', 'requests': n_requests,
-          'latency_s': lat, 'median_latency_s': statistics.median(lat),
-          'forecasts_per_s': 1.0 / statistics.median(lat),
-          'launches': launches, 'per_request_launches': per_request,
-          'patch_pool_drops': drops, 'peak_mem_gib':
-          torch.cuda.max_memory_allocated() / 2 ** 30, 'card': card})
+    launches = {k: m.launches for k, m in counters.items()}
+    for i, got in enumerate(per_request):
+        if any(got[k] != v for k, v in expect.items()) or \
+                got['patch_pool'] < 1:
+            raise AssertionError(f'request {i}: launches {got}, want '
+                                 f'{expect} and patch_pool >= 1')
+    line = {'phase': 'forward_spconv' if spconv else 'forward',
+            'backbone': cfg.MODEL.LIDAR.BACKBONE, 'requests': n_requests,
+            'latency_s': lat, 'median_latency_s': statistics.median(lat),
+            'forecasts_per_s': 1.0 / statistics.median(lat),
+            'launches': launches, 'per_request_launches': per_request,
+            'patch_pool_drops': drops}
+    if spconv:
+        line['winfuse_n_dropped'] = n_dropped
+    emit({**line, 'peak_mem_gib': torch.cuda.max_memory_allocated() / 2 ** 30,
+          'card': card})
     return launches
 
 
@@ -372,8 +605,13 @@ def main(argv=None):
     results = {}
     phase_bin_sum(cfg, dev, results)
     phase_patch_pool(cfg, dev, results)
+    phase_winfuse(dev, results)
     phase_tiny(dev)
+    phase_tiny_spconv(dev)
     launches = phase_forward(cfg, dev, args.requests, smi)
+    launches['winfuse'] = phase_forward(
+        flagship_config(backbone='spconv8x'), dev, args.requests,
+        smi)['winfuse']
 
     kernels = [
         dict(name='bin_sum', route='cuda',
@@ -384,6 +622,10 @@ def main(argv=None):
              source='streamingflow_tpu_torch/csrc/patch_pool.cu',
              replaces='streamingflow_tpu/ops/pallas_patch_pool.py:49',
              launches=launches['patch_pool'], **results['patch_pool']),
+        dict(name='winfuse', route='cuda',
+             source='streamingflow_tpu_torch/csrc/winfuse.cu',
+             replaces='streamingflow_tpu/ops/pallas_winfuse.py:153',
+             launches=launches['winfuse'], **results['winfuse']),
     ]
     for k in kernels:
         if k['launches'] < 1:

@@ -12,6 +12,9 @@ layout changes by rule:
   LayerNorm           scale / bias                 -> weight / bias
   raw parameters      *_kernel (3, 3, I, O)        -> (O, I, 3, 3) (GRUGates'
                       fused gates kernel stays fused); others as they are
+  sparse LiDAR ladder kernel / kernel1 / kernel2   -> as they are, (taps, I, O)
+                      (modules with ``JAX_LAYOUT = True``); MaskedBatchNorm
+                      is a BatchNorm
 
 Variables come as numpy arrays: ``{'params': {...}, 'batch_stats': {...}}``
 nested dicts.  The conversion raises if a JAX leaf is left unconsumed or a
@@ -63,6 +66,8 @@ def _leaf_rule(module: nn.Module, name: str):
     if isinstance(module, (nn.LayerNorm, nn.GroupNorm)):
         return {'weight': ('params', 'scale', None),
                 'bias': ('params', 'bias', None)}[name]
+    if getattr(module, 'JAX_LAYOUT', False):
+        return 'params', name, None
     if name.endswith('kernel'):
         return 'params', name, _kernel_to_torch
     return 'params', name, None

@@ -80,12 +80,22 @@ def tiny_config() -> Config:
     return cfg
 
 
-def flagship_config() -> Config:
-    """The flagship forecast of bench.py::full_cfg (its defaults): camera
-    (6 x 224x480, EfficientNet-B4) + LiDAR (pillar8x, 1600^2 pillars),
-    'pallas_patch' camera pool, 200x200 BEV, variable-step GRU-ODE,
-    3 past frames -> 4 futures, LiDAR branch in bf16."""
+def flagship_config(backbone: str = 'pillar8x') -> Config:
+    """The flagship forecast of bench.py::full_cfg: camera (6 x 224x480,
+    EfficientNet-B4) + LiDAR, 'pallas_patch' camera pool, 200x200 BEV,
+    variable-step GRU-ODE, 3 past frames -> 4 futures, LiDAR branch in
+    bf16.  ``backbone`` 'pillar8x' (full_cfg's default: 1600^2 pillars) or
+    'spconv8x' (full_cfg with STREAMINGFLOW_BENCH_BACKBONE=spconv8x and
+    STREAMINGFLOW_BENCH_ZFORM=winfuse: the column engine over
+    SPARSE_SHAPE 1600x1600x41, 'winfuse' submanifold convs, dense tail from
+    stage 3)."""
+    if backbone not in ('pillar8x', 'spconv8x'):
+        raise ValueError(f'backbone {backbone!r}: pillar8x or spconv8x')
     cfg = Config()
+    cfg.MODEL.LIDAR.BACKBONE = backbone
+    if backbone == 'spconv8x':
+        cfg.MODEL.SPARSE_ENCODER.ENGINE = 'column'
+        cfg.MODEL.SPARSE_ENCODER.Z_FORMULATION = 'winfuse'
     cfg.TIME_RECEPTIVE_FIELD = 3
     cfg.N_FUTURE_FRAMES = 4
     cfg.MODEL.MODALITY.USE_CAMERA = True

@@ -96,6 +96,7 @@ class PillarBEVEncoder(nn.Module):
                  tile_sorted: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.out_channels = 2 * cfg.OUTPUT_CHANNELS
         self.n_z_bins = n_z_bins
         self.tile_sorted = tile_sorted
         n_feat = 1 + cfg.IN_CHANNELS + 1 + n_z_bins

@@ -24,6 +24,7 @@ from ..ops.lift_splat import projection_to_birds_eye_view
 from .decoder import Decoder
 from .encoder import Encoder
 from .future_prediction import FuturePredictionODE
+from .lidar_encoder import LidarBEVEncoder
 from .pillar_encoder import PillarBEVEncoder
 from .temporal_model import TemporalModel
 
@@ -32,12 +33,6 @@ class StreamingFlow(nn.Module):
 
     def __init__(self, cfg: Config):
         super().__init__()
-        if cfg.MODEL.MODALITY.USE_LIDAR and \
-                cfg.MODEL.LIDAR.BACKBONE != 'pillar8x':
-            raise NotImplementedError(
-                f'MODEL.LIDAR.BACKBONE={cfg.MODEL.LIDAR.BACKBONE!r} is not '
-                f'ported yet (ROADMAP.md, Queue 1 item 14: spconv8x '
-                f'backbone); use pillar8x')
         if cfg.PLANNING.ENABLED:
             raise NotImplementedError(
                 'PLANNING.ENABLED is not ported yet (ROADMAP.md, Queue 1 '
@@ -78,9 +73,15 @@ class StreamingFlow(nn.Module):
 
         if self.use_lidar:
             se = cfg.MODEL.SPARSE_ENCODER
-            self.lidar_encoder = PillarBEVEncoder(
-                se, tile_sorted=cfg.MODEL.LIDAR.TILE_SORTED_POINTS)
-            lidar_in = 2 * se.OUTPUT_CHANNELS
+            # any backbone but pillar8x is the sparse encoder, as in the
+            # JAX package; SPARSE_ENCODER.REMAT_LADDER, like MODEL.REMAT,
+            # only matters to a backward pass
+            if cfg.MODEL.LIDAR.BACKBONE == 'pillar8x':
+                self.lidar_encoder = PillarBEVEncoder(
+                    se, tile_sorted=cfg.MODEL.LIDAR.TILE_SORTED_POINTS)
+            else:
+                self.lidar_encoder = LidarBEVEncoder(se)
+            lidar_in = self.lidar_encoder.out_channels
             self.lidar_pre_reduce = cfg.MODEL.LIDAR.PRE_REDUCE_TEMPORAL
             if self.lidar_pre_reduce:
                 self.lidar_reduce = conv2d(lidar_in, tm.START_OUT_CHANNELS, 1)

@@ -1,17 +1,22 @@
 """Where the flagship forward's time goes on the card.
 
     python3 -m streamingflow_tpu_torch.tools.profile_forward \
-        [--requests 5] [--out runs/profile_forward.json]
+        [--backbone pillar8x|spconv8x] [--requests 5] \
+        [--out runs/profile_forward.json]
 
-Builds the flagship model (data.flagship_config: bench.py's full_cfg) in
-bf16 with random weights from a seed, answers one warm-up request and then
-``--requests`` requests, and prints one JSON line with:
+Builds the flagship model (data.flagship_config: bench.py's full_cfg, on
+the given LiDAR backbone) in bf16 with random weights from a seed, answers
+one warm-up request and then ``--requests`` requests, and prints one JSON
+line with:
 
   latency_s     host clock around each request (forward + synchronize)
   stages_ms     per request, CUDA-event time on the stream around each
                 top-level stage (camera encoder, lift + pool, temporal
                 models, LiDAR encoder, GRU-ODE future prediction, decoder);
-                it counts the stream's idle gaps inside a stage too
+                it counts the stream's idle gaps inside a stage too; on
+                spconv8x also each child of the LiDAR encoder
+                ('lidar_encoder.conv_input', ...) and the rest of it
+                ('lidar_encoder.other': voxelize, column maps, dense entry)
   busy_share    device kernel time (torch.profiler) over wall time
   top_kernels   the kernels with the most device time, ms per request
 
@@ -44,6 +49,8 @@ def main(argv=None):
     from streamingflow_tpu_torch.data import flagship_config, make_batch
 
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('--backbone', default='pillar8x',
+                    choices=('pillar8x', 'spconv8x'))
     ap.add_argument('--requests', type=int, default=5)
     ap.add_argument('--out', default=os.path.join('runs',
                                                   'profile_forward.json'))
@@ -53,7 +60,7 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device('cuda', 0)
-    cfg = flagship_config()
+    cfg = flagship_config(backbone=args.backbone)
     model = P.build_model(cfg, device=dev, dtype=torch.bfloat16, seed=0)
 
     marks = defaultdict(list)          # stage -> [(start, end) events]
@@ -70,12 +77,15 @@ def main(argv=None):
             marks[name][-1][1] = ev
         return pre, post
 
-    for name in STAGES:
-        mod = getattr(model, name, None)
-        if mod is not None:
-            pre, post = hook_pair(name)
-            mod.register_forward_pre_hook(pre)
-            mod.register_forward_hook(post)
+    hooked = [(name, getattr(model, name)) for name in STAGES
+              if hasattr(model, name)]
+    if args.backbone == 'spconv8x':
+        hooked += [(f'lidar_encoder.{n}', m)
+                   for n, m in model.lidar_encoder.named_children()]
+    for name, mod in hooked:
+        pre, post = hook_pair(name)
+        mod.register_forward_pre_hook(pre)
+        mod.register_forward_hook(post)
 
     bev_features = model.calculate_birds_eye_view_features
 
@@ -112,6 +122,10 @@ def main(argv=None):
     if 'camera_lift_pool_total' in stages:
         stages['camera_lift_pool'] = (stages.pop('camera_lift_pool_total')
                                       - stages.get('encoder', 0.0))
+    children = [v for k, v in stages.items()
+                if k.startswith('lidar_encoder.')]
+    if children:
+        stages['lidar_encoder.other'] = stages['lidar_encoder'] - sum(children)
     # device-side events only (kernels, copies): the host ops that launched
     # them carry the same time again
     kernels = [(e.key, _device_us(e)) for e in prof.key_averages()
@@ -122,7 +136,8 @@ def main(argv=None):
     smi = os.popen('nvidia-smi --query-gpu=name,power.limit '
                    '--format=csv,noheader').read().strip()
     result = {
-        'card': smi, 'requests': n, 'latency_s': lat,
+        'card': smi, 'backbone': args.backbone, 'requests': n,
+        'latency_s': lat,
         'median_latency_s': statistics.median(lat),
         'stages_ms': stages,
         'busy_share': busy_us / 1e6 / sum(lat),

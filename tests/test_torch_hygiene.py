@@ -72,6 +72,7 @@ def test_unported_backbone_names_the_roadmap():
     cfg = tiny_config()
     cfg.MODEL.MODALITY.USE_LIDAR = True
     cfg.MODEL.LIDAR.BACKBONE = 'spconv8x'
+    cfg.MODEL.SPARSE_ENCODER.ENGINE = 'tiled'
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         P.build_model(cfg, device='cpu')
 

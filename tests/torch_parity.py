@@ -13,6 +13,10 @@ import torch
 
 from streamingflow_tpu_torch.convert import load_flax_variables
 
+# the suite runs in several worker processes at once: two intra-op threads
+# each keep them from contending for the cores
+torch.set_num_threads(2)
+
 
 def random_variables(shapes, seed=0):
     """Numpy variables of the given flax shape tree, drawn at random:
@@ -40,11 +44,14 @@ def random_variables(shapes, seed=0):
 
 def init_jax(module, *args, seed=0, **kwargs):
     """Random variables for a flax module at these inputs (shapes from
-    ``eval_shape``: nothing is compiled)."""
+    ``eval_shape``: nothing is compiled).  Only 'params' and 'batch_stats'
+    are kept: a collection that a module sows into (the LiDAR encoder's
+    'diagnostics') is output, not weights."""
     key = jax.random.PRNGKey(seed)
     shapes = jax.eval_shape(lambda *a: module.init(
         {'params': key, 'dropout': key, 'sample': key}, *a, **kwargs), *args)
-    return random_variables(dict(shapes), seed)
+    return random_variables({c: shapes[c] for c in ('params', 'batch_stats')
+                             if c in shapes}, seed)
 
 
 def apply_jax(module, variables, *args, **kwargs):
