@@ -266,8 +266,11 @@ def _winfuse_case(name, feats, geo, w, nz, zmask=None, reps=10):
         per_col = (zmask.reshape(-1, nz) * per_z).sum(-1)
         nbr = geo.nbr.long()
         flops = 2 * cin * cout * int((per_col[nbr] * geo.found).sum())
+    # input rows a taken tap reads (not the empty column slots), the whole
+    # output, the weights and the maps
     es = feats.element_size()
-    n_bytes = (feats.numel() + got.numel() + w.numel()) * es + \
+    n_rows = int(torch.unique(geo.nbr[geo.found]).numel())
+    n_bytes = (n_rows * feats.shape[1] + got.numel() + w.numel()) * es + \
         geo.nbr.numel() * 4 + geo.found.numel()
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = flops / (BF16_FLOPS if bf16 else FP32_FLOPS)
@@ -276,7 +279,7 @@ def _winfuse_case(name, feats, geo, w, nz, zmask=None, reps=10):
     plain_ms = cuda_ms(lambda: WF.subm_conv_plain(feats, geo.nbr, geo.found,
                                                   w, nz), reps=3, warmup=1)
     return dict(case=name, dtype=str(feats.dtype).split('.')[-1], nz=nz,
-                cin=cin, cout=cout, rows=geo.nbr.shape[1],
+                cin=cin, cout=cout, rows=geo.nbr.shape[1], rows_read=n_rows,
                 found_taps=n_found, max_abs_err=max_err(got, want)[0],
                 max_abs_want=scale, tolerance=tol, kernel_ms=ms,
                 twin_ms=plain_ms, bytes=n_bytes, flops=flops,
@@ -314,10 +317,14 @@ def phase_winfuse(dev, results):
     nz1 = shape1[2]
     # stage-2 columns behind the plain strided conv down1
     feats16 = SC.mask_fused(rand(n, cap1, nz1 * 16), cs1.zmask)
-    cs2 = SC.stack_sets([SC.sparse_conv_columns(
-        SC.cloud(cs1._replace(feats=feats16), i), weights(16, 32),
-        (3, 3, 3), (2, 2, 2), (1, 1, 1), shape1, se.COLUMN_CAPS[1])[0]
-        for i in range(n)])
+    w_down1 = weights(16, 32)
+
+    def down1(i):
+        return SC.sparse_conv_columns(
+            SC.cloud(cs1._replace(feats=feats16), i), w_down1, (3, 3, 3),
+            (2, 2, 2), (1, 1, 1), shape1, se.COLUMN_CAPS[1])[0]
+    cs2 = SC.stack_sets([down1(i) for i in range(n)])
+    down1_ms = cuda_ms(lambda: down1(0), reps=3, warmup=1)
     shape2 = SC.conv_out_shape(shape1, (3, 3, 3), (2, 2, 2), (1, 1, 1))
     geo2 = L.column_geometry(cs2, shape2[:2], se)
     nz2 = shape2[2]
@@ -378,6 +385,7 @@ def phase_winfuse(dev, results):
                         'stage2': geo2.n_dropped.tolist(),
                         'forced': drops},
           'cases': cases,
+          'down1_plain_ms_per_cloud': down1_ms,
           'forecast_ms_est': ms['conv_input'] + 4 * ms['stage1']
           + 4 * ms['stage2'],
           'library_call': 'none: no one call computes this function'})

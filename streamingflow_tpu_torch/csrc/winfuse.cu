@@ -7,11 +7,12 @@
 // and ran the z conv as a banded (nz*Cin, nz*Cout) matmul: shapes for VMEM
 // and the MXU, with ~nz/3 times the useful FLOPs.  Here the function is
 // computed directly: each output column gathers its <= 9 neighbour rows by
-// index, and the 3-tap z conv is a dot product per output site.  The plan's
-// dropped taps arrive already removed from `found`.
+// index, and the 3-tap z conv is a dot product per output site.  A tap that
+// is not found, or that the plan dropped, arrives as source row -1.
 //
-//   out[v, zo*Cout + j] = sum_{k < 9, found[k, v]} sum_{tz < 3, 0 <= zi < nz}
-//                         sum_i feats[nbr[k, v], zi*Cin + i] * w[3k + tz, i, j]
+//   out[v, zo*Cout + j] = sum_{k < 9, src[k, v] >= 0}
+//                         sum_{tz < 3, 0 <= zi < nz}
+//                         sum_i feats[src[k, v], zi*Cin + i] * w[3k + tz, i, j]
 //   with zi = zo + tz - 1, fp32 sums, written once in the input type.
 //
 // What bounds it on an H100: bytes.  The fused layout holds every z of a
@@ -77,8 +78,8 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
 //   src_s  [9][tv] the tile's source row of each tap, -1 if not found
 template <typename T, int CIN, int G>
 __global__ void __launch_bounds__(kThreads)
-winfuse_kernel(const T* __restrict__ feats, const int* __restrict__ nbr,
-               const uint8_t* __restrict__ found, const T* __restrict__ w,
+winfuse_kernel(const T* __restrict__ feats, const int* __restrict__ src,
+               const T* __restrict__ w,
                T* __restrict__ out, int n_out, int nz, int cin, int cout,
                int tv) {
   constexpr int kGroups = kThreads / G;
@@ -124,18 +125,18 @@ winfuse_kernel(const T* __restrict__ feats, const int* __restrict__ nbr,
     for (int e = tid; e < kTaps * tv; e += kThreads) {
       const int v = v0 + e % tv;
       const size_t at = static_cast<size_t>(e / tv) * n_out + v;
-      src_s[e] = (v < n_out && found[at]) ? nbr[at] : -1;
+      src_s[e] = v < n_out ? src[at] : -1;
     }
     for (int k = 0; k < kTaps; ++k) {
       __syncthreads();  // src_s is written, the previous tap's rows read
       // one thread per input row (column, z): its values and its flag
       if (tid < n_items) {
         const int cc = tid / nz;
-        const int src = src_s[k * tv + cc];
+        const int from = src_s[k * tv + cc];
         const int row = off_s[tid] + 1;
         bool nonzero = false;
-        if (src >= 0) {
-          const T* p = feats + static_cast<size_t>(src) * row_len +
+        if (from >= 0) {
+          const T* p = feats + static_cast<size_t>(from) * row_len +
                        (tid - cc * nz) * cin;
           float* dst = x_s + row * CIN;
           if (vec) {
@@ -203,9 +204,9 @@ winfuse_kernel(const T* __restrict__ feats, const int* __restrict__ nbr,
 }
 
 template <typename T, int CIN, int G>
-cudaError_t launch(const void* feats, const int* nbr, const uint8_t* found,
-                   const void* w, void* out, int n_out, int nz, int cin,
-                   int cout, cudaStream_t stream) {
+cudaError_t launch(const void* feats, const int* src, const void* w,
+                   void* out, int n_out, int nz, int cin, int cout,
+                   cudaStream_t stream) {
   const int tv = kThreads / nz;
   const size_t rows = static_cast<size_t>(tv) * (nz + 2);
   const size_t smem = sizeof(float) * rows * CIN + sizeof(T) * 27 * CIN * G +
@@ -227,54 +228,49 @@ cudaError_t launch(const void* feats, const int* nbr, const uint8_t* found,
   const int tiles = (n_out + tv - 1) / tv;
   const int blocks = tiles < sms * per_sm ? tiles : sms * per_sm;
   winfuse_kernel<T, CIN, G><<<blocks, kThreads, smem, stream>>>(
-      static_cast<const T*>(feats), nbr, found, static_cast<const T*>(w),
+      static_cast<const T*>(feats), src, static_cast<const T*>(w),
       static_cast<T*>(out), n_out, nz, cin, cout, tv);
   return cudaGetLastError();
 }
 
 template <typename T, int CIN>
-cudaError_t by_cout(const void* feats, const int* nbr, const uint8_t* found,
-                    const void* w, void* out, int n_out, int nz, int cin,
-                    int cout, cudaStream_t stream) {
+cudaError_t by_cout(const void* feats, const int* src, const void* w,
+                    void* out, int n_out, int nz, int cin, int cout,
+                    cudaStream_t stream) {
   if (cout <= 16)
-    return launch<T, CIN, 16>(feats, nbr, found, w, out, n_out, nz, cin,
-                              cout, stream);
-  return launch<T, CIN, 32>(feats, nbr, found, w, out, n_out, nz, cin, cout,
+    return launch<T, CIN, 16>(feats, src, w, out, n_out, nz, cin, cout,
+                              stream);
+  return launch<T, CIN, 32>(feats, src, w, out, n_out, nz, cin, cout,
                             stream);
 }
 
 template <typename T>
-cudaError_t by_cin(const void* feats, const int* nbr, const uint8_t* found,
-                   const void* w, void* out, int n_out, int nz, int cin,
-                   int cout, cudaStream_t stream) {
+cudaError_t by_cin(const void* feats, const int* src, const void* w,
+                   void* out, int n_out, int nz, int cin, int cout,
+                   cudaStream_t stream) {
   if (cin <= 8)
-    return by_cout<T, 8>(feats, nbr, found, w, out, n_out, nz, cin, cout,
-                         stream);
+    return by_cout<T, 8>(feats, src, w, out, n_out, nz, cin, cout, stream);
   if (cin <= 16)
-    return by_cout<T, 16>(feats, nbr, found, w, out, n_out, nz, cin, cout,
-                          stream);
-  return by_cout<T, 32>(feats, nbr, found, w, out, n_out, nz, cin, cout,
-                        stream);
+    return by_cout<T, 16>(feats, src, w, out, n_out, nz, cin, cout, stream);
+  return by_cout<T, 32>(feats, src, w, out, n_out, nz, cin, cout, stream);
 }
 
 }  // namespace
 
-// feats (R, nz*cin) fp32 or bf16 rows; nbr (9, n_out) int32 rows of feats;
-// found (9, n_out) bool; w (27, cin, cout) in the feats type; out
+// feats (R, nz*cin) fp32 or bf16 rows; src (9, n_out) int32 rows of feats,
+// -1 for a tap that is not taken; w (27, cin, cout) in the feats type; out
 // (n_out, nz*cout) in the feats type.  1 <= cin, cout <= 32, 1 <= nz <= 256.
-extern "C" int sf_winfuse(const void* feats, const int* nbr,
-                          const uint8_t* found, const void* w, void* out,
-                          int n_out, int nz, int cin, int cout, int bf16,
-                          void* stream) {
+extern "C" int sf_winfuse(const void* feats, const int* src, const void* w,
+                          void* out, int n_out, int nz, int cin, int cout,
+                          int bf16, void* stream) {
   if (cin < 1 || cin > 32 || cout < 1 || cout > 32 || nz < 1 ||
       nz > kThreads)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_out == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      bf16 ? by_cin<__nv_bfloat16>(feats, nbr, found, w, out, n_out, nz, cin,
-                                   cout, s)
-           : by_cin<float>(feats, nbr, found, w, out, n_out, nz, cin, cout,
-                           s);
+      bf16 ? by_cin<__nv_bfloat16>(feats, src, w, out, n_out, nz, cin, cout,
+                                   s)
+           : by_cin<float>(feats, src, w, out, n_out, nz, cin, cout, s);
   return static_cast<int>(err);
 }

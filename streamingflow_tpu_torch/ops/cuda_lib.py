@@ -30,7 +30,7 @@ SIGNATURES: Dict[str, Tuple[str, list]] = {
     'bin_sum': ('sf_bin_sum', [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     'patch_pool': ('sf_patch_pool',
                    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
-    'winfuse': ('sf_winfuse', [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    'winfuse': ('sf_winfuse', [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
 }
 
 _FUNCS: Dict[str, ctypes._CFuncPtr] = {}

@@ -226,8 +226,8 @@ def sparse_conv_columns(cs: ColumnSet, weights: torch.Tensor, kernel, stride,
     """Strided sparse conv of one cloud: new active columns, outputs at
     every site an input touches (SparseConv3d semantics), dilated zmask.
     weights (prod(kernel), Cin, Cout), x-major taps.  Outputs are not
-    masked (the masked BN after it masks them); they are summed tap by tap
-    in fp32 and cast to the features' type once."""
+    masked (the masked BN after it masks them); each tap is multiplied and
+    summed in the features' type, as the JAX package sums them."""
     nx, ny, nz = shape
     kz, sz, pz = kernel[2], stride[2], padding[2]
     out_shape = conv_out_shape(shape, kernel, stride, padding)

@@ -129,17 +129,18 @@ def _winfuse_cuda(feats, nbr, found, weights, nz):
                          f'{nz * cin}), got {tuple(feats.shape)}')
     v = nbr.shape[1]
     if tuple(nbr.shape) != (9, v) or nbr.dtype != torch.int32 or \
-            tuple(found.shape) != (9, v) or found.dtype != torch.bool or \
-            not (nbr.is_contiguous() and found.is_contiguous()):
-        raise ValueError('winfuse kernel takes contiguous nbr (9, V) int32 '
-                         'and found (9, V) bool')
+            tuple(found.shape) != (9, v) or found.dtype != torch.bool:
+        raise ValueError('winfuse kernel takes nbr (9, V) int32 and found '
+                         '(9, V) bool')
     if not (feats.device == nbr.device == found.device == weights.device):
         raise ValueError('winfuse kernel: inputs on different devices')
+    # one source row per tap, -1 where the tap is not taken
+    src = torch.where(found, nbr, -1).contiguous()
     w = weights.to(feats.dtype).contiguous()
     out = torch.empty(v, nz * cout, dtype=feats.dtype, device=feats.device)
     err = cuda_lib.kernel('winfuse')(
-        feats.data_ptr(), nbr.data_ptr(), found.data_ptr(), w.data_ptr(),
-        out.data_ptr(), v, nz, cin, cout, int(feats.dtype == torch.bfloat16),
+        feats.data_ptr(), src.data_ptr(), w.data_ptr(), out.data_ptr(), v,
+        nz, cin, cout, int(feats.dtype == torch.bfloat16),
         torch.cuda.current_stream(feats.device).cuda_stream)
     cuda_lib.check('winfuse', err)
     launches += 1
