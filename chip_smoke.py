@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Card gate of the PyTorch port: build its CUDA kernels, hold each against
-its plain PyTorch version, and serve full-width forecasts on one GPU.
+its plain PyTorch version, serve full-width forecasts and take full-width
+training steps on one GPU.
 
-    python3 chip_smoke.py [--requests 3] [--out runs/chip_smoke.json]
+    python3 chip_smoke.py [--requests 3] [--train-steps 3]
+                          [--out runs/chip_smoke.json]
 
 Run from the repository root on a machine with an NVIDIA Hopper card and
 the CUDA toolkit.  Phases, each printing one JSON line:
@@ -29,7 +31,20 @@ the CUDA toolkit.  Phases, each printing one JSON line:
                  requests with kernel launch counts read around them
   9. forward_spconv  the same on the spconv8x backbone (full_cfg with
                  STREAMINGFLOW_BENCH_BACKBONE=spconv8x, ZFORM=winfuse)
- 10. kernels     every kernel of the port with its launches, error and times
+ 10. bin_sum_grouped  the grouped bin-sum kernel vs the plain version and vs
+                 bin_sum at the same cloud (presorted and unsorted, bf16 and
+                 raw fp32, k_tiles 4 / 8 / 16), then the experiment tool
+                 (tools/exp_bin_variants.py of the port: 5 bench-like clouds)
+                 with the kernel's launches read around it
+ 11. patch_pool_bwd  the pool's gradient on the card (backward kernel) vs the
+                 plain version's autograd gradient at flagship shapes and in
+                 the forced-overflow case
+ 12. train_tiny  one tiny camera+LiDAR training step on the card (kernels)
+                 vs the same step on the CPU (plain versions), both in float64
+ 13. train       --train-steps flagship training steps (fp32 parameters,
+                 batch 1, MODEL.REMAT as configured) after one warm-up, with
+                 the kernel launch counts read around each step
+ 14. kernels     every kernel of the port with its launches, error and times
 
 The last line is {"ok": true, "device": {...}}.  Any failed phase raises, so
 the script exits non-zero with no result; so does a machine without CUDA,
@@ -88,21 +103,38 @@ def check_close(name, got, want, rtol, atol):
                              f'rtol {rtol}, atol {atol})')
 
 
-def phase_bin_sum(cfg, dev, results):
-    """K1 at one flagship cloud."""
+def flagship_cloud_rows(cfg, dev):
+    """The bin-sum rows of one flagship cloud (80k points, 1600^2 pillars):
+    data (P, 15), pillar ids, bins, point features."""
     import torch
     from streamingflow_tpu_torch.data import make_batch
     from streamingflow_tpu_torch.models.pillar_encoder import (pillar_grid,
                                                                pillar_rows)
-    from streamingflow_tpu_torch.ops import bin_sum as B
     se = cfg.MODEL.SPARSE_ENCODER
     pts = torch.from_numpy(make_batch(cfg, 1, seed=0, n_points=80000)
                            ['points'][0, 0]).to(dev)
     data, pid = pillar_rows(pts, (pts[:, :3] != 0).any(-1),
                             se.POINT_CLOUD_RANGE, se.VOXEL_SIZE)
     nx, ny = pillar_grid(se.POINT_CLOUD_RANGE, se.VOXEL_SIZE)
-    n_bins, c = nx * ny + 1, data.shape[1]
-    kw = dict(pillar_features=pts.shape[1], out_dtype=torch.bfloat16,
+    return data, pid, nx * ny + 1, pts.shape[1]
+
+
+def bin_sum_bound_ms(data, pid, n_bins):
+    """Rows and ids read once, the bf16 (C, n_bins) output written once;
+    one add a value and a four-operation epilogue a bin."""
+    c = data.shape[1]
+    n_bytes = data.numel() * 4 + pid.numel() * 4 + c * n_bins * 2
+    flops = data.numel() + n_bins * c * 4
+    return max(n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3, n_bytes
+
+
+def phase_bin_sum(cfg, dev, results):
+    """K1 at one flagship cloud."""
+    import torch
+    from streamingflow_tpu_torch.ops import bin_sum as B
+    data, pid, n_bins, n_feat = flagship_cloud_rows(cfg, dev)
+    c = data.shape[1]
+    kw = dict(pillar_features=n_feat, out_dtype=torch.bfloat16,
               transposed_out=True)
     want = B.bin_sum_plain(data, pid, n_bins, **kw)
     # bf16 outputs: fp32 sums in another order may round to the next bf16
@@ -126,21 +158,78 @@ def phase_bin_sum(cfg, dev, results):
     ms = cuda_ms(lambda: B.bin_sum(data, pid, n_bins, presorted=True, **kw))
     plain_ms = cuda_ms(lambda: B.bin_sum_plain(data, pid, n_bins, **kw))
     library_ms = cuda_ms(lambda: sums.index_add_(0, ids64, data))
-    n_in = data.numel() * 4 + pid.numel() * 4
-    n_out = c * n_bins * 2
-    flops = data.numel() + n_bins * c * 4      # adds + epilogue
-    bound_ms = max((n_in + n_out) / HBM_BYTES_PER_S,
-                   flops / FP32_FLOPS) * 1e3
+    bound_ms, n_bytes = bin_sum_bound_ms(data, pid, n_bins)
     results['bin_sum'] = dict(
         max_abs_err=errs[0][0], ms=ms, plain_ms=plain_ms,
         library_ms=library_ms, bound_ms=bound_ms, bound_by='bytes')
-    emit({'phase': 'bin_sum', 'points': int(pts.shape[0]), 'n_bins': n_bins,
+    emit({'phase': 'bin_sum', 'points': int(data.shape[0]), 'n_bins': n_bins,
           'channels': c, 'max_abs_err_presorted': errs[0][0],
           'max_rel_err_presorted': errs[0][1],
           'max_abs_err_unsorted': errs[1][0], 'tolerance': tol,
           'kernel_ms': ms, 'twin_ms': plain_ms, 'library_ms': library_ms,
           'library_call': 'index_add_ of the raw sums (no epilogue)',
-          'bound_us': bound_ms * 1e3, 'bytes': n_in + n_out})
+          'bound_us': bound_ms * 1e3, 'bytes': n_bytes})
+
+
+def phase_bin_sum_grouped(cfg, dev, results):
+    """The grouped bin-sum at one flagship cloud, against the plain version
+    and bin_sum; then the experiment tool's path, its launches counted."""
+    import torch
+    from streamingflow_tpu_torch.ops import bin_sum as B
+    from streamingflow_tpu_torch.tools import exp_bin_variants
+    data, pid, n_bins, n_feat = flagship_cloud_rows(cfg, dev)
+    kw = dict(pillar_features=n_feat, out_dtype=torch.bfloat16,
+              transposed_out=True)
+    want = B.bin_sum_plain(data, pid, n_bins, **kw)
+    base = B.bin_sum(data, pid, n_bins, presorted=True, **kw)
+    raw_want = B.bin_sum_plain(data, pid, n_bins, transposed_out=True)
+    perm = torch.randperm(data.shape[0], device=dev)
+    # bin_sum's tolerances: bf16 outputs of fp32 sums in another order may
+    # round to the next bf16 value; raw fp32 sums differ by reassociation
+    tol = dict(rtol=2 ** -7, atol=1e-2)
+    errs, ms = {}, {}
+    for k in (4, 8, 16):
+        for presorted in (True, False):
+            got = B.bin_sum_grouped(data, pid, n_bins, presorted=presorted,
+                                    k_tiles=k, **kw)
+            torch.cuda.synchronize()
+            name = f'bin_sum_grouped k_tiles={k} presorted={presorted}'
+            check_close(name + ' vs plain', got, want, **tol)
+            check_close(name + ' vs bin_sum', got, base, **tol)
+            if presorted:
+                errs[str(k)] = max_err(got, want)[0]
+        raw = B.bin_sum_grouped(data[perm], pid[perm], n_bins,
+                                transposed_out=True, k_tiles=k)
+        torch.cuda.synchronize()
+        check_close(f'bin_sum_grouped k_tiles={k} raw fp32', raw, raw_want,
+                    rtol=1e-5, atol=1e-4)
+        ms[str(k)] = cuda_ms(lambda: B.bin_sum_grouped(
+            data, pid, n_bins, presorted=True, k_tiles=k, **kw))
+    bin_sum_ms = cuda_ms(lambda: B.bin_sum(data, pid, n_bins, presorted=True,
+                                           **kw))
+    plain_ms = cuda_ms(lambda: B.bin_sum_plain(data, pid, n_bins, **kw))
+    sums = torch.zeros(n_bins, data.shape[1], device=dev)
+    ids64 = pid.long()
+    library_ms = cuda_ms(lambda: sums.index_add_(0, ids64, data))
+    bound_ms, n_bytes = bin_sum_bound_ms(data, pid, n_bins)
+
+    # the kernel's own path: the experiment tool, counts read around it
+    B.launches_grouped = 0
+    tool = exp_bin_variants.run((4, 8, 16), device=dev)
+    launches = B.launches_grouped
+    if launches < 1:
+        raise AssertionError('exp_bin_variants did not launch the grouped '
+                             'kernel')
+    results['bin_sum_grouped'] = dict(
+        launches=launches, max_abs_err=errs['8'], ms=ms['8'],
+        plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+        bound_by='bytes')
+    emit({'phase': 'bin_sum_grouped', 'points': int(data.shape[0]),
+          'n_bins': n_bins, 'max_abs_err_by_k_tiles': errs, 'tolerance': tol,
+          'kernel_ms_by_k_tiles': ms, 'bin_sum_ms': bin_sum_ms,
+          'twin_ms': plain_ms, 'library_ms': library_ms,
+          'bound_us': bound_ms * 1e3, 'bytes': n_bytes,
+          'tool_launches': launches, 'tool': tool})
 
 
 def flagship_pool_inputs(cfg, dev, gen):
@@ -232,6 +321,84 @@ def phase_patch_pool(cfg, dev, results):
           'overflow_drops': o_drops.tolist(), 'kernel_ms': ms,
           'twin_ms': plain_ms, 'library_ms': library_ms,
           'library_call': 'index_add_ of the fitting rows into the grid',
+          'bound_us': bound_ms * 1e3, 'bytes': n_bytes})
+
+
+def phase_patch_pool_bwd(cfg, dev, results):
+    """The pool's gradient: backward kernel vs the plain version's autograd
+    gradient, at the flagship frame stack and in a forced overflow."""
+    import torch
+    from streamingflow_tpu_torch.ops import patch_pool as PP
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x, coords, kept, nx, ny = flagship_pool_inputs(cfg, dev, gen)
+    x = x.float()                    # the training step's features are fp32
+
+    def both(x, coords, kept):
+        """(kernel gradient, plain autograd gradient, fits) for one random
+        cotangent."""
+        dout = torch.randn(x.shape[0], nx, ny, 64, device=dev, generator=gen)
+        grads = []
+        for pool in (PP.patch_pool_frames, PP.patch_pool_frames_plain):
+            xin = x.clone().requires_grad_()
+            pool(xin, coords, kept, nx, ny)[0].backward(dout)
+            grads.append(xin.grad)
+        torch.cuda.synchronize()
+        return grads[0], grads[1], PP.fits_mask(coords, kept, nx, ny)[1], dout
+
+    before = PP.launches_bwd
+    got, want, fits, dout = both(x, coords, kept)
+    if PP.launches_bwd != before + 1:
+        raise AssertionError('the pool\'s backward did not launch its kernel')
+    # a gather of fp32 values in both: equal, not only close
+    if got.dtype != torch.float32 or not torch.equal(got, want):
+        raise AssertionError(f'patch_pool backward disagrees with the plain '
+                             f'gradient (max abs {max_err(got, want)[0]:.3g})')
+    if bool(got[~fits].any()):
+        raise AssertionError('patch_pool backward: a row that was not summed '
+                             'has a gradient')
+    # forced overflow: the rows lost to the budget get exactly zero
+    ox = torch.randn(2, 2, 3, 28, 8, 64, device=dev, generator=gen)
+    oc = torch.randint(0, nx, (2, 2, 3, 28, 8, 2), device=dev,
+                       generator=gen, dtype=torch.int32)
+    ok = torch.rand(2, 2, 3, 28, 8, device=dev, generator=gen) > 0.2
+    o_got, o_want, o_fits, _ = both(ox, oc, ok)
+    n_dropped = int((ok & ~o_fits).sum())
+    if n_dropped <= 0 or not torch.equal(o_got, o_want) or \
+            bool(o_got[ok & ~o_fits].any()):
+        raise AssertionError('patch_pool backward, forced overflow: dropped '
+                             'rows must get exactly zero gradient')
+    # bf16 features get a bf16 gradient of the same fp32 cotangent
+    g16 = PP.patch_pool_grad(dout, coords, kept, nx, ny, torch.bfloat16)
+    torch.cuda.synchronize()
+    if not torch.equal(g16, want.to(torch.bfloat16)):
+        raise AssertionError('patch_pool backward: bf16 gradient differs')
+
+    ms = cuda_ms(lambda: PP.patch_pool_grad(dout, coords, kept, nx, ny,
+                                            torch.float32))
+    plain_ms = cuda_ms(lambda: PP.patch_pool_grad_plain(
+        dout, coords, kept, nx, ny, torch.float32), reps=5)
+    # one PyTorch call for the same function: rows of the cotangent (a zero
+    # row appended for the rows not summed) selected by a precomputed index
+    frame = torch.arange(x.shape[0], device=dev).view(-1, 1, 1, 1, 1)
+    cell = frame * (nx * ny) + coords[..., 0] * ny + coords[..., 1]
+    index = torch.where(fits, cell, torch.full_like(
+        cell, x.shape[0] * nx * ny)).flatten().long()
+    table = torch.cat([dout.reshape(-1, 64), dout.new_zeros(1, 64)])
+    library_ms = cuda_ms(lambda: torch.index_select(table, 0, index))
+    # the cotangent read once, every row's coords and mask, one fp32
+    # gradient row written per frustum row
+    n_bytes = (dout.numel() * 4 + coords.numel() * 4 + kept.numel()
+               + got.numel() * 4)
+    bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    results['patch_pool_bwd'] = dict(
+        max_abs_err=max_err(got, want)[0], ms=ms, plain_ms=plain_ms,
+        library_ms=library_ms, bound_ms=bound_ms, bound_by='bytes')
+    emit({'phase': 'patch_pool_bwd', 'x_shape': list(x.shape),
+          'rows_summed': int(fits.sum()), 'overflow_rows_dropped': n_dropped,
+          'max_abs_err': max_err(got, want)[0], 'tolerance': 'equal',
+          'kernel_ms': ms, 'twin_ms': plain_ms, 'library_ms': library_ms,
+          'library_call': 'index_select of the cotangent rows by a '
+                          'precomputed index (a zero row for rows not summed)',
           'bound_us': bound_ms * 1e3, 'bytes': n_bytes})
 
 
@@ -569,9 +736,207 @@ def phase_forward(cfg, dev, n_requests, card, n_points=80000):
     return launches
 
 
+def _tiny_train_config():
+    from streamingflow_tpu_torch.data import tiny_config
+    cfg = tiny_config()
+    cfg.MODEL.MODALITY.USE_LIDAR = True
+    cfg.MODEL.ENCODER.OUT_CHANNELS = 64
+    cfg.MODEL.BEV_POOL_BACKEND = 'pallas_patch'
+    cfg.PROBABILISTIC.ENABLED = False
+    return cfg
+
+
+def phase_train_tiny(dev):
+    """One tiny camera+LiDAR training step: card (K1, K2 forward and
+    backward) vs CPU (plain versions), same initial weights and batch,
+    dropout off (the two devices' generators draw different masks).
+
+    Both run in float64.  What is left between them is then what the kernels
+    and their plain versions differ by (the order of K2's fp32 sums, a K1
+    feature one bf16 step off), so the backward is held: the gradient norm
+    to 5e-3, every gradient leaf to 0.1 of its scale, the whole gradient's
+    cosine above 0.999, and every parameter whose gradient is well above
+    that noise to the same Adam update.  In fp32 the step's own rounding
+    moves the gradient leaves by several percent of their scale between two
+    runs that sum in another order (tests/test_torch_train_step.py measures
+    it on the CPU), which would hide a wrong gradient."""
+    import torch
+    import streamingflow_tpu_torch as P
+    from streamingflow_tpu_torch.data import make_batch
+    from streamingflow_tpu_torch.layers.trainmode import Dropout
+    from streamingflow_tpu_torch.ops import bin_sum as B
+    from streamingflow_tpu_torch.ops import patch_pool as PP
+    tol = {'losses': 1e-5, 'grad_norm': 5e-3, 'grad_leaf': 0.1,
+           'grad_cosine': 0.999, 'bn_buffers': 1e-4,
+           'parameters': '2 * lr; 1e-3 * lr where |g| >= 0.1 of the leaf'}
+    cfg = _tiny_train_config()
+    cfg.MODEL.SPARSE_ENCODER.COMPUTE_DTYPE = 'float64'
+    cpu = P.build_trainer(cfg, device='cpu', seed=0)
+    gpu = P.build_trainer(cfg, device=dev)
+    gpu.module.load_state_dict(cpu.module.state_dict())
+    for trainer in (cpu, gpu):
+        trainer.module.double()
+        for m in trainer.module.modules():
+            if isinstance(m, Dropout):
+                m.rate = 0.0
+    batch = make_batch(cfg, 1, seed=1, n_points=4096)
+    before = {k: v.clone() for k, v in cpu.module.state_dict().items()}
+    counts = (B.launches, PP.launches, PP.launches_bwd)
+    want = P.train_step(cpu, batch)
+    got = P.train_step(gpu, batch)
+    torch.cuda.synchronize()
+    if any(a == b for a, b in zip(counts, (B.launches, PP.launches,
+                                           PP.launches_bwd))):
+        raise AssertionError('tiny train step did not launch K1, K2 and '
+                             'K2\'s backward')
+    errs = {}
+    for k, w in want.items():
+        g = got[k].cpu()
+        if not torch.isfinite(g).all():
+            raise AssertionError(f'tiny train step: {k} not finite')
+        errs[k] = float((g - w).abs())
+        t = tol['grad_norm'] if k == 'grad_norm' else tol['losses']
+        check_close(f'tiny train step {k}', g, w, rtol=t, atol=t)
+
+    # the gradients as backward left them: train_step clips in place
+    def grads(trainer, metrics):
+        unclip = max(float(metrics['grad_norm']) / cfg.GRAD_NORM_CLIP, 1.0)
+        return {k: p.grad.cpu() * unclip
+                for k, p in trainer.module.named_parameters()}
+
+    g_cpu, g_gpu = grads(cpu, want), grads(gpu, got)
+    scale = {k: float(g.abs().max()) for k, g in g_cpu.items()}
+    floor = statistics.median(scale.values())
+    leaf = {k: float((g_gpu[k] - g).abs().max()) / max(scale[k], floor)
+            for k, g in g_cpu.items()}
+    worst = max(leaf, key=leaf.get)
+    if leaf[worst] > tol['grad_leaf']:
+        raise AssertionError(f'tiny train step: gradient of {worst} differs '
+                             f'by {leaf[worst]:.3g} of its scale')
+    dot = sum(float((g_gpu[k] * g).sum()) for k, g in g_cpu.items())
+    cosine = dot / (sum(float((g ** 2).sum()) for g in g_cpu.values())
+                    * sum(float((g ** 2).sum()) for g in g_gpu.values())
+                    ) ** 0.5
+    if cosine < tol['grad_cosine']:
+        raise AssertionError(f'tiny train step: gradient cosine {cosine}')
+
+    lr = cfg.OPTIMIZER.LR
+    moved, n_sure, n_all, sure_diff = 0.0, 0, 0, 0.0
+    gpu_state = gpu.module.state_dict()
+    for k, w in cpu.module.state_dict().items():
+        diff = (gpu_state[k].cpu() - w).abs()
+        if k in g_cpu:
+            if float(diff.max()) > 2.001 * lr:
+                raise AssertionError(f'tiny train step: parameter {k} differs '
+                                     f'by {float(diff.max()):.3g} > 2 * lr')
+            # Adam's first update is lr * sign(g) but for eps: it is the
+            # same on both devices wherever |g| is well above their noise
+            sure = g_cpu[k].abs() >= tol['grad_leaf'] * max(scale[k], floor)
+            n_sure += int(sure.sum())
+            n_all += sure.numel()
+            if sure.any():
+                sure_diff = max(sure_diff, float(diff[sure].max()))
+            moved = max(moved, float((w - before[k]).abs().max()))
+        elif 'num_batches' not in k:
+            check_close(f'tiny train step buffer {k}', gpu_state[k].cpu(), w,
+                        rtol=tol['bn_buffers'], atol=tol['bn_buffers'])
+    if sure_diff > 1e-3 * lr or n_sure < 0.1 * n_all:
+        raise AssertionError(f'tiny train step: parameters with a sure '
+                             f'gradient ({n_sure} of {n_all}) differ by '
+                             f'{sure_diff / lr:.3g} * lr')
+    if moved < 0.5 * lr:
+        raise AssertionError('tiny train step: no parameter moved')
+    emit({'phase': 'train_tiny', 'dtype': 'float64', 'max_abs_err': errs,
+          'grad_norm': [float(want['grad_norm']), float(got['grad_norm'])],
+          'grad_leaf_rel': {'worst': leaf[worst], 'worst_leaf': worst,
+                            'median': statistics.median(leaf.values())},
+          'grad_cosine': cosine,
+          'sure_parameters': {'share': n_sure / n_all,
+                              'max_diff_over_lr': sure_diff / lr},
+          'losses': {k: float(v) for k, v in got.items()},
+          'tolerance': tol})
+
+
+def phase_train(cfg, dev, n_steps, card, n_points=80000):
+    """Flagship training steps (fp32 parameters, batch 1), every kernel
+    count set to 0 before the steps and read after them."""
+    import torch
+    import streamingflow_tpu_torch as P
+    from streamingflow_tpu_torch.data import make_batch
+    from streamingflow_tpu_torch.data.synthetic import n_lidar_sweeps
+    from streamingflow_tpu_torch.ops import bin_sum as B
+    from streamingflow_tpu_torch.ops import patch_pool as PP
+    trainer = P.build_trainer(cfg, device=dev, seed=0)
+    expect = {'bin_sum': n_lidar_sweeps(cfg), 'patch_pool': 1,
+              'patch_pool_bwd': 1}
+
+    def counts():
+        return {'bin_sum': B.launches, 'patch_pool': PP.launches,
+                'patch_pool_bwd': PP.launches_bwd}
+
+    def step(seed):
+        batch = make_batch(cfg, 1, seed=seed, n_points=n_points)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = P.train_step(trainer, batch, generator=gen)
+        torch.cuda.synchronize()
+        return metrics, time.perf_counter() - t0
+
+    state = trainer.module.state_dict()
+    start = {k: v.clone() for k, v in state.items()}
+    step(100)                                     # warm-up, not counted
+    torch.cuda.reset_peak_memory_stats()
+    B.launches = PP.launches = PP.launches_bwd = 0
+    times, losses, per_step, drops = [], [], [], []
+    for seed in range(1, n_steps + 1):
+        before = counts()
+        metrics, dt = step(seed)
+        per_step.append({k: v - before[k] for k, v in counts().items()})
+        times.append(dt)
+        drops.append(PP.last_drops.tolist())
+        for k, v in metrics.items():
+            if not torch.isfinite(v).all():
+                raise AssertionError(f'train step {seed}: {k} not finite')
+        losses.append({k: float(v) for k, v in metrics.items()})
+    for i, got in enumerate(per_step):
+        if got != expect:
+            raise AssertionError(f'train step {i}: launches {got}, want '
+                                 f'{expect}')
+    if any(any(d) for d in drops):
+        raise AssertionError(f'train: the patch pool dropped rows: {drops}')
+    names = {k for k, _ in trainer.module.named_parameters()}
+    moved = {'parameters': 0, 'bn_buffers': 0}
+    for k, v in trainer.module.state_dict().items():
+        if 'num_batches' in k:
+            continue
+        if not torch.isfinite(v).all():
+            raise AssertionError(f'train: {k} not finite after the steps')
+        if not torch.equal(v, start[k]):
+            moved['parameters' if k in names else 'bn_buffers'] += 1
+    n_buffers = sum(1 for k in state if k not in names
+                    and 'num_batches' not in k)
+    # a parameter that is 0 and gets an exactly zero gradient stays (Adam's
+    # update of 0 is 0), so not every tensor need move; every BN ran
+    if moved['parameters'] < 0.9 * len(names) or \
+            moved['bn_buffers'] != n_buffers:
+        raise AssertionError(f'train: moved {moved} of {len(names)} '
+                             f'parameters and {n_buffers} BN buffers')
+    emit({'phase': 'train', 'steps': n_steps, 'remat': cfg.MODEL.REMAT,
+          'step_s': times, 'median_step_s': statistics.median(times),
+          'losses': losses, 'launches': counts(),
+          'per_step_launches': per_step, 'patch_pool_drops': drops,
+          'moved': {**moved, 'of_parameters': len(names),
+                    'of_bn_buffers': n_buffers},
+          'peak_mem_gib': torch.cuda.max_memory_allocated() / 2 ** 30,
+          'card': card})
+    return counts()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--requests', type=int, default=3)
+    ap.add_argument('--train-steps', type=int, default=3)
     ap.add_argument('--out', default=os.path.join(ROOT, 'runs',
                                                   'chip_smoke.json'))
     args = ap.parse_args(argv)
@@ -620,20 +985,39 @@ def main(argv=None):
     launches['winfuse'] = phase_forward(
         flagship_config(backbone='spconv8x'), dev, args.requests,
         smi)['winfuse']
+    phase_bin_sum_grouped(cfg, dev, results)
+    phase_patch_pool_bwd(cfg, dev, results)
+    phase_train_tiny(dev)
+    train_launches = phase_train(cfg, dev, args.train_steps, smi)
 
+    # launches: of the serving path's requests (bin_sum, patch_pool,
+    # winfuse), of the training steps (patch_pool_bwd; train_launches for the
+    # forward kernels), of the experiment tool (bin_sum_grouped)
     kernels = [
         dict(name='bin_sum', route='cuda',
              source='streamingflow_tpu_torch/csrc/bin_sum.cu',
              replaces='streamingflow_tpu/ops/pallas_bin.py:63',
-             launches=launches['bin_sum'], **results['bin_sum']),
+             launches=launches['bin_sum'],
+             train_launches=train_launches['bin_sum'], **results['bin_sum']),
         dict(name='patch_pool', route='cuda',
              source='streamingflow_tpu_torch/csrc/patch_pool.cu',
              replaces='streamingflow_tpu/ops/pallas_patch_pool.py:49',
-             launches=launches['patch_pool'], **results['patch_pool']),
+             launches=launches['patch_pool'],
+             train_launches=train_launches['patch_pool'],
+             **results['patch_pool']),
         dict(name='winfuse', route='cuda',
              source='streamingflow_tpu_torch/csrc/winfuse.cu',
              replaces='streamingflow_tpu/ops/pallas_winfuse.py:153',
              launches=launches['winfuse'], **results['winfuse']),
+        dict(name='bin_sum_grouped', route='cuda',
+             source='streamingflow_tpu_torch/csrc/bin_sum_grouped.cu',
+             replaces='tools/exp_bin_variants.py:26',
+             **results['bin_sum_grouped']),
+        dict(name='patch_pool_bwd', route='cuda',
+             source='streamingflow_tpu_torch/csrc/patch_pool.cu',
+             replaces='streamingflow_tpu/ops/pallas_patch_pool.py:257',
+             launches=train_launches['patch_pool_bwd'],
+             **results['patch_pool_bwd']),
     ]
     for k in kernels:
         if k['launches'] < 1:

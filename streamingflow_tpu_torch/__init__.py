@@ -11,4 +11,5 @@ __version__ = '0.1.0'
 
 from .config import Config, get_cfg, load_cfg  # noqa: F401
 from .models.streamingflow import StreamingFlow, build_model  # noqa: F401
-from .training.trainer import batch_to_model_args  # noqa: F401
+from .training.trainer import (batch_to_model_args,  # noqa: F401
+                               build_trainer, eval_forward, train_step)

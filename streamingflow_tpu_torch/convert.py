@@ -1,4 +1,4 @@
-"""Weights of the JAX package -> the port's state_dict.
+"""Weights of the JAX package -> the port's state_dict, and back.
 
 The port's submodules carry the flax variable paths as names, so each torch
 tensor ``a.b.Conv_0.weight`` has one flax leaf ``a/b/Conv_0/kernel`` and the
@@ -23,6 +23,12 @@ torch parameter or buffer is left unassigned (BatchNorm's
 BatchNorm eps is a constructor argument of each torch module and matches the
 flax module's (1e-3 in EfficientNet and the pillar ladder, 1e-5 elsewhere);
 flax BN momentum m is torch momentum 1 - m.
+
+The train module (training/trainer.py::StreamingFlowTrainModule) maps by the
+same rules: ``params/model/...``, ``params/task_weights/{name}_weight`` and
+``batch_stats/model/...``.  :func:`state_to_flax` is the way back: a
+module's parameters, gradients and BatchNorm statistics as numpy trees under
+the flax names and layouts, to compare leaf by leaf.
 """
 from __future__ import annotations
 
@@ -48,6 +54,16 @@ def _kernel_to_torch(k: np.ndarray) -> np.ndarray:
     """flax (spatial..., I, O) -> torch (O, I, spatial...)."""
     nd = k.ndim
     return np.transpose(k, (nd - 1, nd - 2, *range(nd - 2)))
+
+
+def _kernel_to_flax(w: np.ndarray) -> np.ndarray:
+    """torch (O, I, spatial...) -> flax (spatial..., I, O)."""
+    return np.transpose(w, (*range(2, w.ndim), 1, 0))
+
+
+# the way back of each transform of :func:`_leaf_rule`
+_INVERSE = {None: None, np.transpose: np.transpose,
+            _kernel_to_torch: _kernel_to_flax}
 
 
 def _leaf_rule(module: nn.Module, name: str):
@@ -126,3 +142,31 @@ def load_flax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
     """Load a JAX variable tree into ``model`` in place (strict)."""
     model.load_state_dict(flax_to_state_dict(model, variables), strict=True)
     return model
+
+
+def state_to_flax(model: nn.Module, grads: bool = False
+                  ) -> Dict[str, Dict[str, np.ndarray]]:
+    """``model``'s tensors as flat numpy trees under the flax paths and
+    layouts: ``{'params': {'a/b/kernel': ...}, 'batch_stats': {...}}``
+    (compare with :func:`flatten` of a JAX tree).  ``grads``: the
+    parameters' gradients in place of their values (a parameter without a
+    gradient gives zeros) and no batch statistics."""
+    out = {'params': {}, 'batch_stats': {}}
+    for mod_name, module in model.named_modules():
+        tensors = list(module.named_parameters(recurse=False))
+        if not grads:
+            tensors += list(module.named_buffers(recurse=False))
+        for name, tensor in tensors:
+            if tensor is None or name == 'num_batches_tracked':
+                continue
+            col, leaf, fn = _leaf_rule(module, name)
+            if grads:
+                tensor = (torch.zeros_like(tensor) if tensor.grad is None
+                          else tensor.grad)
+            # a copy: the tree must not follow later updates of the tensor
+            value = np.array(tensor.detach().float().cpu().numpy())
+            back = _INVERSE[fn]
+            path = '/'.join([*mod_name.split('.'), leaf]) if mod_name \
+                else leaf
+            out[col][path] = value if back is None else back(value)
+    return out

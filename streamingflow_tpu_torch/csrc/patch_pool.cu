@@ -2,7 +2,8 @@
 //
 // Replaces the TPU kernel
 // streamingflow_tpu/ops/pallas_patch_pool.py::_patch_pool_kernel/_one_group,
-// forward only.  The function: frustum rows are grouped by (frame, camera,
+// and holds the pool's backward (_pool_bwd there, plain jnp outside any TPU
+// kernel) as a second kernel.  The function: frustum rows are grouped by (frame, camera,
 // depth bin, 4 image columns), fH * 4 rows a group.  A group's patch origin
 // is its min kept x and its min kept y floored to a multiple of 8, both
 // clamped into the grid; a kept row is added into its BEV cell only if it
@@ -32,15 +33,20 @@ constexpr int kThreads = 128;  // one thread per group row (fH * 4 <= 128)
 constexpr int kWarps = kThreads / 32;
 constexpr int kChan = 64;
 
-__global__ void __launch_bounds__(kThreads)
-patch_pool_kernel(const __nv_bfloat16* __restrict__ x,
-                  const int* __restrict__ coords,
-                  const uint8_t* __restrict__ kept, float* __restrict__ out,
-                  int* __restrict__ drops, int N, int D, int fH, int fW,
-                  int WB, int nx, int ny) {
+// The patch-budget decision for thread r's row of group blockIdx.x.
+struct RowFit {
+  int f;           // frame of the group
+  long long p;     // flat row index into (F, N, D, fH, fW); -1 for a thread
+                   // beyond the group's rows or the image's columns
+  int cell;        // cx * ny + cy if the row is summed, else -1
+  bool dropped;    // kept, but outside the group's patch
+  bool any_kept;   // the group has a kept row (the same in every thread)
+};
+
+__device__ RowFit row_fit(const int* __restrict__ coords,
+                          const uint8_t* __restrict__ kept, int N, int D,
+                          int fH, int fW, int WB, int nx, int ny) {
   __shared__ int s_min[2][kWarps];
-  __shared__ int s_cell[kThreads];
-  __shared__ long long s_row[kThreads];
 
   int g = blockIdx.x;
   const int wb = g % WB;
@@ -52,11 +58,10 @@ patch_pool_kernel(const __nv_bfloat16* __restrict__ x,
 
   const int r = threadIdx.x;
   const int lane = r & 31, warp = r >> 5;
-  const int rows = fH * kUBlock;
   bool valid = false;
   int cx = INT_MAX, cy = INT_MAX;
-  long long p = 0;
-  if (r < rows) {
+  long long p = -1;
+  if (r < fH * kUBlock) {
     const int h = r / kUBlock, w = wb * kUBlock + r % kUBlock;
     if (w < fW) {
       p = ((((long long)f * N + n) * D + d) * fH + h) * fW + w;
@@ -83,21 +88,38 @@ patch_pool_kernel(const __nv_bfloat16* __restrict__ x,
     minx = min(minx, s_min[0][i]);
     miny = min(miny, s_min[1][i]);
   }
-  if (minx == INT_MAX) return;  // no kept row in the group (block-uniform)
 
   const int x0 = min(max(minx, 0), nx - kPatchH);
   const int y0 = min(max((miny >> 3) * 8, 0), ny - kPatchW);  // floor
   const int lx = cx - x0, ly = cy - y0;
   const bool fits =
       valid && lx >= 0 && lx < kPatchH && ly >= 0 && ly < kPatchW;
-  const int n_drop = __popc(__ballot_sync(0xffffffffu, valid && !fits));
-  if (lane == 0 && n_drop) atomicAdd(&drops[f], n_drop);
-  s_cell[r] = fits ? cx * ny + cy : -1;
-  s_row[r] = p;
+  return {f, p, fits ? cx * ny + cy : -1, valid && !fits, minx != INT_MAX};
+}
+
+__global__ void __launch_bounds__(kThreads)
+patch_pool_kernel(const __nv_bfloat16* __restrict__ x,
+                  const int* __restrict__ coords,
+                  const uint8_t* __restrict__ kept, float* __restrict__ out,
+                  int* __restrict__ drops, int N, int D, int fH, int fW,
+                  int WB, int nx, int ny) {
+  __shared__ int s_cell[kThreads];
+  __shared__ long long s_row[kThreads];
+
+  const RowFit fit = row_fit(coords, kept, N, D, fH, fW, WB, nx, ny);
+  if (!fit.any_kept) return;  // block-uniform
+
+  const int r = threadIdx.x;
+  const int lane = r & 31, warp = r >> 5;
+  const int n_drop = __popc(__ballot_sync(0xffffffffu, fit.dropped));
+  if (lane == 0 && n_drop) atomicAdd(&drops[fit.f], n_drop);
+  s_cell[r] = fit.cell;
+  s_row[r] = fit.p;
   __syncthreads();
 
   // one warp per row, two channels per lane
-  float* frame = out + (size_t)f * nx * ny * kChan;
+  float* frame = out + (size_t)fit.f * nx * ny * kChan;
+  const int rows = fH * kUBlock;
   for (int i = warp; i < rows; i += kWarps) {
     const int cell = s_cell[i];
     if (cell < 0) continue;
@@ -106,6 +128,48 @@ patch_pool_kernel(const __nv_bfloat16* __restrict__ x,
     float* dst = frame + (size_t)cell * kChan + 2 * lane;
     atomicAdd(dst, v.x);
     atomicAdd(dst + 1, v.y);
+  }
+}
+
+__device__ __forceinline__ void store2(float* p, float2 v) {
+  *reinterpret_cast<float2*>(p) = v;
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float2 v) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __float22bfloat162_rn(v);
+}
+
+// Backward of the pool: the pool is linear in x, so each row's gradient is
+// the output cotangent at the row's cell if the forward summed the row, and
+// zero if it did not (not kept, or lost to the patch budget).  Same groups
+// and the same decision as the forward; one warp writes a row's 64 values.
+// Bound by bytes: the cotangent grid is read (it stays in L2), one gradient
+// row is written per frustum row.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+patch_pool_bwd_kernel(const float* __restrict__ dout,
+                      const int* __restrict__ coords,
+                      const uint8_t* __restrict__ kept, T* __restrict__ dx,
+                      int N, int D, int fH, int fW, int WB, int nx, int ny) {
+  __shared__ int s_cell[kThreads];
+  __shared__ long long s_row[kThreads];
+
+  const RowFit fit = row_fit(coords, kept, N, D, fH, fW, WB, nx, ny);
+  const int r = threadIdx.x;
+  const int lane = r & 31, warp = r >> 5;
+  s_cell[r] = fit.cell;
+  s_row[r] = fit.p;
+  __syncthreads();
+
+  const float* frame = dout + (size_t)fit.f * nx * ny * kChan;
+  const int rows = fH * kUBlock;
+  for (int i = warp; i < rows; i += kWarps) {
+    const long long p = s_row[i];
+    if (p < 0) continue;  // a column beyond the image
+    const int cell = s_cell[i];
+    float2 v = make_float2(0.f, 0.f);
+    if (cell >= 0)
+      v = reinterpret_cast<const float2*>(frame + (size_t)cell * kChan)[lane];
+    store2(dx + p * kChan + 2 * lane, v);
   }
 }
 
@@ -125,5 +189,26 @@ extern "C" int sf_patch_pool(const void* x, const int* coords,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x), coords, kept, out, drops, N, D,
       fH, fW, WB, nx, ny);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dout (F, nx, ny, 64) fp32; coords and kept as above; dx (F, N, D, fH, fW,
+// 64) fp32 or bf16, every row written.
+extern "C" int sf_patch_pool_bwd(const float* dout, const int* coords,
+                                 const uint8_t* kept, void* dx, int F, int N,
+                                 int D, int fH, int fW, int nx, int ny,
+                                 int dx_bf16, void* stream) {
+  const int WB = (fW + kUBlock - 1) / kUBlock;
+  const long long groups = (long long)F * N * D * WB;
+  if (groups == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dx_bf16)
+    patch_pool_bwd_kernel<<<(unsigned)groups, kThreads, 0, s>>>(
+        dout, coords, kept, static_cast<__nv_bfloat16*>(dx), N, D, fH, fW, WB,
+        nx, ny);
+  else
+    patch_pool_bwd_kernel<<<(unsigned)groups, kThreads, 0, s>>>(
+        dout, coords, kept, static_cast<float*>(dx), N, D, fH, fW, WB, nx,
+        ny);
   return static_cast<int>(cudaGetLastError());
 }

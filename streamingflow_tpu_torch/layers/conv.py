@@ -4,7 +4,8 @@ Port of streamingflow_tpu/layers/conv.py.  Submodules carry the names of
 the flax modules they stand for (``Conv_0``, ``BatchNorm_0``, ...), so a
 flax variable path maps onto a torch parameter name by rule
 (streamingflow_tpu_torch/convert.py).  BatchNorm follows the JAX package:
-eps 1e-5 unless set, and torch momentum = 1 - flax momentum.
+eps 1e-5 unless set, torch momentum = 1 - flax momentum, and flax's
+train-mode rule (layers/trainmode.py).
 """
 from __future__ import annotations
 
@@ -14,11 +15,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .trainmode import BatchNorm, Dropout
 
-def batch_norm(channels: int, eps: float = 1e-5, momentum: float = 0.1,
-               dims: int = 2) -> nn.Module:
-    cls = nn.BatchNorm2d if dims == 2 else nn.BatchNorm3d
-    return cls(channels, eps=eps, momentum=momentum)
+
+def batch_norm(channels: int, eps: float = 1e-5,
+               momentum: float = 0.1) -> BatchNorm:
+    return BatchNorm(channels, eps=eps, momentum=momentum)
 
 
 def conv2d(cin: int, cout: int, k: int, stride: int = 1, dilation: int = 1,
@@ -135,7 +137,7 @@ class ASPP(nn.Module):
         self.Conv_5 = conv2d(5 * cout, cout, 1)
         for i in range(6):
             self.add_module(f'BatchNorm_{i}', batch_norm(cout))
-        self.dropout = nn.Dropout(0.5)
+        self.dropout = Dropout(0.5)
 
     def forward(self, x):
         def bn_relu(i, h):

@@ -12,6 +12,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .conv import ConvBlock, conv2d, resize_nearest
+from .trainmode import Dropout
 
 
 class ResBlock(nn.Module):
@@ -26,7 +27,7 @@ class ResBlock(nn.Module):
                                      activation=activation)
         self.ConvBlock_1 = ConvBlock(cin, cout, 3, norm=norm,
                                      activation=activation)
-        self.dropout = nn.Dropout(0.25)
+        self.dropout = Dropout(0.25)
         self.project = cout != cin
         if self.project:
             self.Conv_0 = conv2d(cin, cout, 1, bias=True)

@@ -126,7 +126,7 @@ class CausalConv3d(nn.Module):
         self.Conv_0 = nn.Conv3d(cin, cout, kernel_size, dilation=dilation,
                                 padding=(0, ((kh - 1) * dh) // 2,
                                          ((kw - 1) * dw) // 2), bias=False)
-        self.BatchNorm_0 = batch_norm(cout, dims=3)
+        self.BatchNorm_0 = batch_norm(cout)
 
     def forward(self, x):
         x = F.pad(x, (0, 0, 0, 0, self.pad_t, 0))
@@ -139,7 +139,7 @@ class Conv1x1x1NormActivated(nn.Module):
     def __init__(self, cin: int, cout: int):
         super().__init__()
         self.Conv_0 = nn.Conv3d(cin, cout, 1, bias=False)
-        self.BatchNorm_0 = batch_norm(cout, dims=3)
+        self.BatchNorm_0 = batch_norm(cout)
 
     def forward(self, x):
         return F.relu(self.BatchNorm_0(self.Conv_0(x)))
@@ -160,7 +160,7 @@ class Bottleneck3D(nn.Module):
         self.project = cout != cin
         if self.project:
             self.Conv_0 = nn.Conv3d(cin, cout, 1, bias=False)
-            self.BatchNorm_0 = batch_norm(cout, dims=3)
+            self.BatchNorm_0 = batch_norm(cout)
 
     def forward(self, x):
         h = self.Conv1x1x1NormActivated_0(x)
@@ -238,7 +238,7 @@ class TemporalBlock(nn.Module):
         self.project = cout != cin
         if self.project:
             self.Conv_0 = nn.Conv3d(cin, cout, 1, bias=False)
-            self.BatchNorm_0 = batch_norm(cout, dims=3)
+            self.BatchNorm_0 = batch_norm(cout)
 
     def forward(self, x):
         paths = [self.CausalConv3d_0(self.Conv1x1x1NormActivated_0(x)),

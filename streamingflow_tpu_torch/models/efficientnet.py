@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..layers.conv import batch_norm
+from ..layers.trainmode import Dropout
 
 # (num_repeat, kernel, stride, expand_ratio, input_filters, output_filters,
 #  se_ratio)
@@ -84,7 +85,8 @@ class MBConvBlock(nn.Module):
         expanded = in_filters * expand_ratio
         self.expand = expand_ratio != 1
         self.residual = stride == 1 and in_filters == out_filters
-        self.drop_connect_rate = drop_connect_rate
+        # per-sample drop of the residual branch, train mode only
+        self.drop_connect = Dropout(drop_connect_rate, per_sample=True)
         bns = iter(range(3))
         if self.expand:
             self.expand_conv = nn.Conv2d(in_filters, expanded, 1, bias=False)
@@ -114,11 +116,7 @@ class MBConvBlock(nn.Module):
             x = torch.sigmoid(s) * x
         x = getattr(self, self.bn_project)(self.project_conv(x))
         if self.residual:
-            if self.training and self.drop_connect_rate > 0:
-                raise NotImplementedError(
-                    'drop connect (train mode) belongs to the training '
-                    'slice (ROADMAP.md, Queue 1 item 11)')
-            x = x + inputs
+            x = self.drop_connect(x) + inputs
         return x
 
 

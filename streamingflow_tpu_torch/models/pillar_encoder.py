@@ -111,6 +111,11 @@ class PillarBEVEncoder(nn.Module):
                                       momentum=0.01)
 
     def forward(self, points):
+        return self.ladder(self.pillar_features(points))
+
+    def pillar_features(self, points):
+        """points (B, T, P, C) -> bf16 pillar statistics (B, T, F, nx, ny),
+        one bin-sum a cloud; no gradient flows (the input is points)."""
         cfg = self.cfg
         B, T, P, C = points.shape
         if C != cfg.IN_CHANNELS:
@@ -123,6 +128,14 @@ class PillarBEVEncoder(nn.Module):
                       cfg.VOXEL_SIZE, self.n_z_bins, out_dtype=torch.bfloat16,
                       presorted=self.tile_sorted, layout='cf')
             for i in range(B * T)])                       # (BT, F, nx, ny)
+        return h.reshape(B, T, *h.shape[1:])
+
+    def ladder(self, h):
+        """Pillar statistics (B, T, F, nx, ny) -> BEV features: 4x
+        space-to-depth and the dense conv stages."""
+        cfg = self.cfg
+        B, T = h.shape[:2]
+        h = h.flatten(0, 1)
         bt, f, nx, ny = h.shape
         s = 4
         h = h.reshape(bt, f, nx // s, s, ny // s, s).permute(
@@ -135,6 +148,7 @@ class PillarBEVEncoder(nn.Module):
         h = self.stage4_down(h)
         h = self.stage4_conv(h)
         h = F.relu(self.BatchNorm_0(self.conv_out(h)))
+        # 'auto' = the points' dtype, float32
         out_dtype = (getattr(torch, cfg.COMPUTE_DTYPE)
-                     if cfg.COMPUTE_DTYPE != 'auto' else points.dtype)
+                     if cfg.COMPUTE_DTYPE != 'auto' else torch.float32)
         return h.to(out_dtype).reshape(B, T, *h.shape[1:])

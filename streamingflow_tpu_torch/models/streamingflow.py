@@ -1,13 +1,16 @@
 """StreamingFlow: asynchronous camera + LiDAR streams -> BEV futures.
 
-Port of streamingflow_tpu/models/streamingflow.py, the eval-mode forward.
-Inputs and outputs are channels-last as in the JAX package (images
-(B, T, N, H, W, 3), points (B, T_l, P, 5), outputs (B, T, H, W, K)); inside,
-the modules run NCHW.  Submodule names follow the flax variable paths
-(convert.py loads JAX weights by them).
+Port of streamingflow_tpu/models/streamingflow.py.  Inputs and outputs are
+channels-last as in the JAX package (images (B, T, N, H, W, 3), points
+(B, T_l, P, 5), outputs (B, T, H, W, K)); inside, the modules run NCHW.
+Submodule names follow the flax variable paths (convert.py loads JAX weights
+by them).
 
 :func:`build_model` is the entry point: it builds the model on the card
-unless asked for the CPU.
+unless asked for the CPU.  In train mode (``model.train()``) BatchNorm takes
+batch statistics and moves its running ones, dropout and drop-connect draw
+from the forward's ``generator``, and MODEL.REMAT recomputes the major
+sub-modules in the backward pass (layers/trainmode.py).
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from .. import geometry as G
 from ..config import Config
 from ..device import resolve_device
 from ..layers.conv import conv2d
+from ..layers.trainmode import remat, set_generator
 from ..ops.lift_splat import projection_to_birds_eye_view
 from .decoder import Decoder
 from .encoder import Encoder
@@ -41,8 +45,7 @@ class StreamingFlow(nn.Module):
             raise NotImplementedError(
                 "TEMPORAL_MODEL.NAME='identity' is not ported yet")
         self.cfg = cfg
-        # MODEL.REMAT only trades memory for recompute in a backward pass;
-        # the forward ignores it
+        self._generator: Optional[torch.Generator] = None
         (self.bev_resolution, self.bev_start_position,
          self.bev_dimension) = G.calculate_birds_eye_view_parameters(
             cfg.LIFT.X_BOUND, cfg.LIFT.Y_BOUND, cfg.LIFT.Z_BOUND)
@@ -74,8 +77,8 @@ class StreamingFlow(nn.Module):
         if self.use_lidar:
             se = cfg.MODEL.SPARSE_ENCODER
             # any backbone but pillar8x is the sparse encoder, as in the
-            # JAX package; SPARSE_ENCODER.REMAT_LADDER, like MODEL.REMAT,
-            # only matters to a backward pass
+            # JAX package (eval mode only: SPARSE_ENCODER.REMAT_LADDER only
+            # matters to a backward pass)
             if cfg.MODEL.LIDAR.BACKBONE == 'pillar8x':
                 self.lidar_encoder = PillarBEVEncoder(
                     se, tile_sorted=cfg.MODEL.LIDAR.TILE_SORTED_POINTS)
@@ -112,6 +115,17 @@ class StreamingFlow(nn.Module):
             predict_future_flow=cfg.INSTANCE_FLOW.ENABLED,
             planning=cfg.PLANNING.ENABLED)
 
+    def _remat_on(self) -> bool:
+        """MODEL.REMAT is set and a backward pass will follow."""
+        return (self.cfg.MODEL.REMAT and self.training
+                and torch.is_grad_enabled())
+
+    def _run(self, module, *args):
+        """``module(*args)``, rematerialised under MODEL.REMAT."""
+        if self._remat_on():
+            return remat(module, module, self._generator, *args)
+        return module(*args)
+
     # ---------------------------------------------------------------- camera
     def calculate_birds_eye_view_features(self, image, intrinsics,
                                           extrinsics, future_egomotion):
@@ -124,7 +138,7 @@ class StreamingFlow(nn.Module):
         geometry = geometry.reshape(b, s, *geometry.shape[1:])
 
         flat = image.reshape(b * s * n, *image.shape[3:]).permute(0, 3, 1, 2)
-        feature, depth = self.encoder(flat)           # NCHW
+        feature, depth = self._run(self.encoder, flat)  # NCHW
         fh, fw = feature.shape[2:]
         names = list(self.cfg.IMAGE.NAMES)
         front = (names.index('CAM_FRONT') if 'CAM_FRONT' in names
@@ -161,20 +175,36 @@ class StreamingFlow(nn.Module):
                 ) -> Dict[str, Optional[torch.Tensor]]:
         """Channels-last inputs (as streamingflow_tpu's StreamingFlow) ->
         dict of channels-last outputs.  ``generator`` drives the GRU-ODE's
-        latent sampling when PROBABILISTIC.ENABLED."""
+        latent sampling when PROBABILISTIC.ENABLED and, in train mode, the
+        dropout and drop-connect masks."""
         cfg = self.cfg
+        self._generator = generator
+        if self.training:
+            set_generator(self, generator)
         rf = self.receptive_field
         output: Dict[str, Optional[torch.Tensor]] = {}
         camera_states = lidar_states = states = None
         future_egomotion = future_egomotion[:, :rf]
 
         if self.use_lidar:
-            feat = self.lidar_encoder(points)            # (B, T, C, X, Y)
+            enc = self.lidar_encoder
+            if self._remat_on() and isinstance(enc, PillarBEVEncoder):
+                # the bin-sums take no gradient: they run once, outside the
+                # rematerialised ladder
+                feat = remat(enc.ladder, enc, self._generator,
+                             enc.pillar_features(points))
+            else:
+                feat = enc(points)                       # (B, T, C, X, Y)
+            # SPARSE_ENCODER.COMPUTE_DTYPE may leave the branch narrower
+            # than the weights it meets (bf16 features, fp32 parameters in
+            # training): widen, as flax promotes; the rounding stays
+            feat = feat.to(torch.promote_types(
+                feat.dtype, self.decoder.first_conv.weight.dtype))
             if self.lidar_pre_reduce:
                 b, t = feat.shape[:2]
                 feat = self.lidar_reduce(feat.flatten(0, 1))
                 feat = feat.reshape(b, t, *feat.shape[1:])
-            lidar_states = self.temporal_model_lidar(feat)
+            lidar_states = self._run(self.temporal_model_lidar, feat)
             states = lidar_states
 
         if self.use_camera:
@@ -191,16 +221,17 @@ class StreamingFlow(nn.Module):
                 ego = torch.cat([torch.zeros_like(ego[:, :1]),
                                  ego[:, :rf - 1]], dim=1)
                 x = torch.cat([x, ego.to(x.dtype)], dim=-1)
-            camera_states = self.temporal_model(x.permute(0, 1, 4, 2, 3))
+            camera_states = self._run(self.temporal_model,
+                                      x.permute(0, 1, 4, 2, 3))
             states = camera_states
 
         if self.n_future > 0:
-            states = self.future_prediction(
-                states[:, -1:], camera_states, camera_timestamp,
-                lidar_states, lidar_timestamp, target_timestamp,
-                generator=generator)
+            states = self._run(
+                self.future_prediction, states[:, -1:], camera_states,
+                camera_timestamp, lidar_states, lidar_timestamp,
+                target_timestamp, generator)
 
-        for k, v in self.decoder(states).items():
+        for k, v in self._run(self.decoder, states).items():
             if v is not None and k != 'costvolume':
                 # (.., K, H, W) -> (.., H, W, K)
                 v = v.movedim(-3, -1)

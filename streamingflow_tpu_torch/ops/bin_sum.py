@@ -6,6 +6,13 @@ per 2048-bin tile, sums in shared memory, epilogue fused, output written
 once in its final type); on a CPU tensor it takes the plain PyTorch version
 :func:`bin_sum_plain`, which sums in fp32 as the JAX package's XLA fallback
 does.  There is no fallback from the kernel to the plain version.
+
+:func:`bin_sum_grouped` is the same function through the grouped kernel
+csrc/bin_sum_grouped.cu (the JAX package's experiment
+tools/exp_bin_variants.py::bin_sum_grouped: ``k_tiles`` consecutive tiles a
+block, an empty tile written as zeros without accumulating).  The model
+keeps :func:`bin_sum`; tools/exp_bin_variants.py of this package times one
+against the other.
 """
 from __future__ import annotations
 
@@ -20,8 +27,10 @@ BINS_PER_TILE = 2048
 # 227 KiB a Hopper block may take
 MAX_KERNEL_CHANNELS = 27
 
-# kernel launches since the last reset (chip_smoke.py reads it)
+# launches of csrc/bin_sum.cu and of csrc/bin_sum_grouped.cu since the last
+# reset (chip_smoke.py reads them)
 launches = 0
+launches_grouped = 0
 
 
 def pillar_finalize(acc: torch.Tensor, n_feat: int) -> torch.Tensor:
@@ -65,18 +74,38 @@ def bin_sum(data: torch.Tensor, ids: torch.Tensor, n_bins: int,
     or (C, n_bins) with ``transposed_out``.  ``presorted``: rows already
     grouped by 2048-bin tile (the loader's tile sort), so the kernel path
     skips its stable sort; the result does not depend on it."""
+    return _dispatch(data, ids, n_bins, pillar_features, out_dtype, presorted,
+                     transposed_out, None)
+
+
+def bin_sum_grouped(data: torch.Tensor, ids: torch.Tensor, n_bins: int,
+                    pillar_features: Optional[int] = None,
+                    out_dtype: torch.dtype = torch.float32,
+                    presorted: bool = False, transposed_out: bool = False,
+                    k_tiles: int = 8) -> torch.Tensor:
+    """:func:`bin_sum` through the grouped kernel: one block takes
+    ``k_tiles`` consecutive 2048-bin tiles.  Same arguments, same result."""
+    if k_tiles < 1:
+        raise ValueError(f'bin_sum_grouped: k_tiles {k_tiles} < 1')
+    return _dispatch(data, ids, n_bins, pillar_features, out_dtype, presorted,
+                     transposed_out, k_tiles)
+
+
+def _dispatch(data, ids, n_bins, pillar_features, out_dtype, presorted,
+              transposed_out, k_tiles):
     if data.device.type == 'cpu':
         return bin_sum_plain(data, ids, n_bins, pillar_features, out_dtype,
                              transposed_out)
     if data.device.type != 'cuda':
         raise ValueError(f'bin_sum: unsupported device {data.device}')
     return _bin_sum_cuda(data, ids, n_bins, pillar_features, out_dtype,
-                         presorted, transposed_out)
+                         presorted, transposed_out, k_tiles)
 
 
 def _bin_sum_cuda(data, ids, n_bins, pillar_features, out_dtype, presorted,
-                  transposed_out):
-    global launches
+                  transposed_out, k_tiles):
+    """Launch csrc/bin_sum.cu (``k_tiles`` None) or csrc/bin_sum_grouped.cu."""
+    global launches, launches_grouped
     if data.dim() != 2 or ids.shape != data.shape[:1]:
         raise ValueError(f'bin_sum: data {tuple(data.shape)} and ids '
                          f'{tuple(ids.shape)} must be (P, C) and (P,)')
@@ -108,11 +137,16 @@ def _bin_sum_cuda(data, ids, n_bins, pillar_features, out_dtype, presorted,
     offsets = torch.searchsorted(ids // BINS_PER_TILE, tile_starts,
                                  out_int32=True)
     out = torch.empty(c, n_bins, dtype=out_dtype, device=data.device)
-    err = cuda_lib.kernel('bin_sum')(
-        data.data_ptr(), ids.data_ptr(), offsets.data_ptr(), out.data_ptr(),
-        n_tiles, n_bins, c, -1 if pillar_features is None else pillar_features,
-        int(out_dtype == torch.bfloat16),
-        torch.cuda.current_stream(data.device).cuda_stream)
-    cuda_lib.check('bin_sum', err)
-    launches += 1
+    args = (data.data_ptr(), ids.data_ptr(), offsets.data_ptr(),
+            out.data_ptr(), n_tiles, n_bins, c,
+            -1 if pillar_features is None else pillar_features,
+            int(out_dtype == torch.bfloat16))
+    stream = torch.cuda.current_stream(data.device).cuda_stream
+    if k_tiles is None:
+        cuda_lib.check('bin_sum', cuda_lib.kernel('bin_sum')(*args, stream))
+        launches += 1
+    else:
+        cuda_lib.check('bin_sum_grouped', cuda_lib.kernel('bin_sum_grouped')(
+            *args, k_tiles, stream))
+        launches_grouped += 1
     return out if transposed_out else out.t()

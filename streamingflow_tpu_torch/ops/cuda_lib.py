@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` compiles with nvcc for ``sm_90a`` into a shared
 library with a plain C interface, loaded with ctypes.  A library is built
 at first use into ``_build/`` beside this package (listed in .gitignore),
-named by a hash of its source and flags, so an edited source rebuilds.
+named by a hash of its source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source rebuilds.
 :func:`build` compiles several sources at once, one nvcc process each.
 Nothing here runs when the package is imported.
 """
@@ -15,7 +16,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, Optional
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / 'csrc'
@@ -24,15 +25,21 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# C entry point of each source and its argument types (pointers and the
+# C entry points of each source and their argument types (pointers and the
 # stream as c_void_p: a plain int argument would cut them to 32 bits)
-SIGNATURES: Dict[str, Tuple[str, list]] = {
-    'bin_sum': ('sf_bin_sum', [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    'patch_pool': ('sf_patch_pool',
-                   [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
-    'winfuse': ('sf_winfuse', [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+SIGNATURES: Dict[str, Dict[str, list]] = {
+    'bin_sum': {'sf_bin_sum': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
+    'bin_sum_grouped': {'sf_bin_sum_grouped':
+                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},
+    'patch_pool': {
+        'sf_patch_pool':
+            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        'sf_patch_pool_bwd':
+            [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
+    'winfuse': {'sf_winfuse': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
 }
 
+_LIBS: Dict[str, ctypes.CDLL] = {}
 _FUNCS: Dict[str, ctypes._CFuncPtr] = {}
 # ptxas report (registers, shared memory, spills) of each build
 BUILD_LOG: Dict[str, str] = {}
@@ -51,6 +58,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f'{name}.cu').read_bytes()
+    for header in sorted(CSRC.glob('*.cuh')):
+        src += header.read_bytes()
     tag = hashlib.sha256(src + ' '.join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f'lib{name}_{tag[:16]}.so'
 
@@ -83,17 +92,20 @@ def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, Path]:
     return paths
 
 
-def kernel(name: str):
-    """The C entry point of ``csrc/<name>.cu``, building it if needed.  It
-    returns a cudaError_t as int (0 = success)."""
-    fn = _FUNCS.get(name)
+def kernel(name: str, symbol: Optional[str] = None):
+    """C entry point ``symbol`` (``sf_<name>`` unless given) of
+    ``csrc/<name>.cu``, building the source if needed.  It returns a
+    cudaError_t as int (0 = success)."""
+    symbol = symbol or f'sf_{name}'
+    fn = _FUNCS.get(symbol)
     if fn is None:
-        symbol, argtypes = SIGNATURES[name]
-        lib = ctypes.CDLL(str(build([name])[name]))
-        fn = getattr(lib, symbol)
+        argtypes = SIGNATURES[name][symbol]
+        if name not in _LIBS:
+            _LIBS[name] = ctypes.CDLL(str(build([name])[name]))
+        fn = getattr(_LIBS[name], symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _FUNCS[name] = fn
+        _FUNCS[symbol] = fn
     return fn
 
 

@@ -1,4 +1,4 @@
-"""Camera lift-splat pool with the patch budget, forward.
+"""Camera lift-splat pool with the patch budget, forward and backward.
 
 Port of streamingflow_tpu/ops/pallas_patch_pool.py::patch_pool_frames.
 Frustum rows are grouped by (frame, camera, depth bin, 4 image columns); a
@@ -14,6 +14,16 @@ frames in one launch); on a CPU tensor it takes the plain PyTorch version
 :func:`patch_pool_frames_plain`.  There is no fallback from the kernel to
 the plain version.  The kernel takes C = 64 features, the width of the
 main path (the JAX kernel takes only 64 too).
+
+:func:`patch_pool_frames` is differentiable in ``x`` (the JAX package's
+custom VJP ``_pool_bwd``): the pool is linear, so a row's gradient is the
+output cotangent at its cell, and exactly zero for a row that was not
+summed.  Only ``coords`` and ``kept`` are saved for it.  The forward rounds
+``x`` to bf16, the backward does not round: the gradient comes back in
+``x``'s dtype.  :func:`patch_pool_grad` launches the second kernel of
+csrc/patch_pool.cu on a CUDA tensor and takes :func:`patch_pool_grad_plain`
+on a CPU tensor; :func:`patch_pool_frames_plain` gives the same gradient
+through ordinary autograd.
 """
 from __future__ import annotations
 
@@ -27,8 +37,10 @@ UBLOCK = 4            # image columns per group
 ROWS = 128            # most rows a group may have (fH * UBLOCK)
 KERNEL_CHANNELS = 64
 
-# kernel launches since the last reset (chip_smoke.py reads it)
+# launches of the forward and of the backward kernel since the last reset
+# (chip_smoke.py reads them)
 launches = 0
+launches_bwd = 0
 # per-frame drop counts of the latest pool, either path (a device tensor:
 # reading it is the caller's synchronisation, not the pool's)
 last_drops = None
@@ -69,10 +81,65 @@ def patch_pool_frames_plain(x: torch.Tensor, coords: torch.Tensor,
     drops = (valid & ~fits).reshape(f, -1).sum(1).to(torch.int32)
     frame = torch.arange(f, device=x.device).view(f, 1, 1, 1, 1)
     cell = (frame * (nx * ny) + coords[..., 0] * ny + coords[..., 1])[fits]
-    feats = x.to(torch.bfloat16).float()[fits]
+    # bf16 rounding of the value, identity for the gradient
+    rounded = x + (x.to(torch.bfloat16).to(x.dtype) - x).detach()
+    feats = rounded.float()[fits]
     out = torch.zeros(f * nx * ny, c, dtype=torch.float32, device=x.device)
     out.index_add_(0, cell.long(), feats)
     return out.reshape(f, nx, ny, c), drops
+
+
+def patch_pool_grad_plain(dout: torch.Tensor, coords: torch.Tensor,
+                          kept: torch.Tensor, nx: int, ny: int,
+                          dtype: torch.dtype) -> torch.Tensor:
+    """Plain PyTorch version of :func:`patch_pool_grad`."""
+    f, c = dout.shape[0], dout.shape[-1]
+    fits = fits_mask(coords, kept, nx, ny)[1]
+    cell = coords[..., 0] * ny + coords[..., 1]
+    cell = torch.where(fits, cell, torch.zeros_like(cell)).reshape(f, -1)
+    g = torch.gather(dout.reshape(f, nx * ny, c), 1,
+                     cell.long()[..., None].expand(-1, -1, c))
+    g = g.reshape(*kept.shape, c)
+    return torch.where(fits[..., None], g, torch.zeros_like(g)).to(dtype)
+
+
+def patch_pool_grad(dout: torch.Tensor, coords: torch.Tensor,
+                    kept: torch.Tensor, nx: int, ny: int,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """Gradient of the pool w.r.t. its rows: dout (F, nx, ny, C) fp32 ->
+    (F, N, D, fH, fW, C) in ``dtype``, the cotangent at each summed row's
+    cell and zero for every other row."""
+    if dout.device.type == 'cpu':
+        return patch_pool_grad_plain(dout, coords, kept, nx, ny, dtype)
+    if dout.device.type != 'cuda':
+        raise ValueError(f'patch_pool_grad: unsupported device {dout.device}')
+    return _patch_pool_grad_cuda(dout, coords, kept, nx, ny, dtype)
+
+
+class _PatchPool(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, coords, kept, nx, ny):
+        if x.device.type == 'cpu':
+            with torch.no_grad():
+                out, drops = patch_pool_frames_plain(x, coords, kept, nx, ny)
+        elif x.device.type == 'cuda':
+            out, drops = _patch_pool_cuda(x, coords, kept, nx, ny)
+        else:
+            raise ValueError(f'patch_pool_frames: unsupported device '
+                             f'{x.device}')
+        ctx.save_for_backward(coords, kept)
+        ctx.grid = (nx, ny)
+        ctx.x_dtype = x.dtype
+        ctx.mark_non_differentiable(drops)
+        return out, drops
+
+    @staticmethod
+    def backward(ctx, dout, _ddrops):
+        coords, kept = ctx.saved_tensors
+        dx = patch_pool_grad(dout.float().contiguous(), coords, kept,
+                             *ctx.grid, ctx.x_dtype)
+        return dx, None, None, None, None
 
 
 def patch_pool_frames(x: torch.Tensor, coords: torch.Tensor,
@@ -81,13 +148,51 @@ def patch_pool_frames(x: torch.Tensor, coords: torch.Tensor,
     cells, kept (F, N, D, fH, fW) bool -> (bev (F, nx, ny, C) fp32,
     drops (F,) int32, the kept rows lost to the patch budget)."""
     global last_drops
-    if x.device.type == 'cpu':
-        out, last_drops = patch_pool_frames_plain(x, coords, kept, nx, ny)
-    elif x.device.type == 'cuda':
-        out, last_drops = _patch_pool_cuda(x, coords, kept, nx, ny)
-    else:
-        raise ValueError(f'patch_pool_frames: unsupported device {x.device}')
+    out, last_drops = _PatchPool.apply(x, coords, kept, nx, ny)
     return out, last_drops
+
+
+def _check_rows(what, lead, coords, kept, device):
+    f, n, d, fh, fw = lead
+    if fh * UBLOCK > ROWS:
+        raise ValueError(f'{what}: fH * {UBLOCK} = {fh * UBLOCK} '
+                         f'rows exceed the {ROWS}-row group budget')
+    if tuple(coords.shape) != (f, n, d, fh, fw, 2) or \
+            coords.dtype != torch.int32:
+        raise ValueError(f'{what}: coords must be int32 '
+                         f'{(f, n, d, fh, fw, 2)}')
+    if tuple(kept.shape) != (f, n, d, fh, fw) or kept.dtype != torch.bool:
+        raise ValueError(f'{what}: kept must be bool {(f, n, d, fh, fw)}')
+    if not (device == coords.device == kept.device):
+        raise ValueError(f'{what}: inputs on different devices')
+    if not (coords.is_contiguous() and kept.is_contiguous()):
+        raise ValueError(f'{what} takes contiguous inputs')
+
+
+def _patch_pool_grad_cuda(dout, coords, kept, nx, ny, dtype):
+    global launches_bwd
+    f = dout.shape[0]
+    if tuple(dout.shape) != (f, nx, ny, KERNEL_CHANNELS) or \
+            dout.dtype != torch.float32 or not dout.is_contiguous():
+        raise ValueError(f'patch_pool backward kernel takes a contiguous '
+                         f'float32 cotangent (F, {nx}, {ny}, '
+                         f'{KERNEL_CHANNELS}), got {tuple(dout.shape)} '
+                         f'{dout.dtype}')
+    # the kernel writes bfloat16 or float32; any other dtype is cast from
+    # float32, which holds the gathered float32 cotangent exactly
+    written = dtype if dtype == torch.bfloat16 else torch.float32
+    _check_rows('patch_pool backward kernel', kept.shape, coords, kept,
+                dout.device)
+    n, d, fh, fw = kept.shape[1:]
+    dx = torch.empty(*kept.shape, KERNEL_CHANNELS, dtype=written,
+                     device=dout.device)
+    err = cuda_lib.kernel('patch_pool', 'sf_patch_pool_bwd')(
+        dout.data_ptr(), coords.data_ptr(), kept.data_ptr(), dx.data_ptr(),
+        f, n, d, fh, fw, nx, ny, int(written == torch.bfloat16),
+        torch.cuda.current_stream(dout.device).cuda_stream)
+    cuda_lib.check('patch_pool_bwd', err)
+    launches_bwd += 1
+    return dx.to(dtype)
 
 
 def _patch_pool_cuda(x, coords, kept, nx, ny):
@@ -96,21 +201,9 @@ def _patch_pool_cuda(x, coords, kept, nx, ny):
         raise ValueError(f'patch_pool kernel takes x (F, N, D, fH, fW, '
                          f'{KERNEL_CHANNELS}), got {tuple(x.shape)}')
     f, n, d, fh, fw, _ = x.shape
-    if fh * UBLOCK > ROWS:
-        raise ValueError(f'patch_pool kernel: fH * {UBLOCK} = {fh * UBLOCK} '
-                         f'rows exceed the {ROWS}-row group budget')
-    if tuple(coords.shape) != (f, n, d, fh, fw, 2) or \
-            coords.dtype != torch.int32:
-        raise ValueError('patch_pool kernel: coords must be int32 '
-                         f'{(f, n, d, fh, fw, 2)}')
-    if tuple(kept.shape) != (f, n, d, fh, fw) or kept.dtype != torch.bool:
-        raise ValueError(f'patch_pool kernel: kept must be bool '
-                         f'{(f, n, d, fh, fw)}')
-    if not (x.device == coords.device == kept.device):
-        raise ValueError('patch_pool kernel: inputs on different devices')
+    _check_rows('patch_pool kernel', x.shape[:5], coords, kept, x.device)
     x = x.to(torch.bfloat16)
-    if not (x.is_contiguous() and coords.is_contiguous()
-            and kept.is_contiguous()):
+    if not x.is_contiguous():
         raise ValueError('patch_pool kernel takes contiguous inputs')
     out = torch.zeros(f, nx, ny, KERNEL_CHANNELS, dtype=torch.float32,
                       device=x.device)

@@ -1,7 +1,7 @@
-"""Where the flagship forward's time goes on the card.
+"""Where the flagship forward's, or training step's, time goes on the card.
 
     python3 -m streamingflow_tpu_torch.tools.profile_forward \
-        [--backbone pillar8x|spconv8x] [--requests 5] \
+        [--backbone pillar8x|spconv8x] [--requests 5] [--train] \
         [--out runs/profile_forward.json]
 
 Builds the flagship model (data.flagship_config: bench.py's full_cfg, on
@@ -19,6 +19,12 @@ line with:
                 ('lidar_encoder.other': voxelize, column maps, dense entry)
   busy_share    device kernel time (torch.profiler) over wall time
   top_kernels   the kernels with the most device time, ms per request
+
+With ``--train`` (pillar8x only) the requests are training steps
+(training/trainer.py::train_step, fp32 parameters, batch 1, MODEL.REMAT as
+configured): ``stages_ms`` then holds the stream time of the forward (stages
+as above, first pass only), of the loss + backward (with the rematerialised
+sub-modules' second pass) and of the optimizer.
 
 Needs a CUDA card; raises without one.
 """
@@ -52,16 +58,24 @@ def main(argv=None):
     ap.add_argument('--backbone', default='pillar8x',
                     choices=('pillar8x', 'spconv8x'))
     ap.add_argument('--requests', type=int, default=5)
+    ap.add_argument('--train', action='store_true')
     ap.add_argument('--out', default=os.path.join('runs',
                                                   'profile_forward.json'))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('profile_forward: CUDA is not available')
+    if args.train and args.backbone != 'pillar8x':
+        raise SystemExit('profile_forward: --train takes pillar8x only (the '
+                         'spconv8x backbone has no train mode yet)')
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device('cuda', 0)
     cfg = flagship_config(backbone=args.backbone)
-    model = P.build_model(cfg, device=dev, dtype=torch.bfloat16, seed=0)
+    if args.train:
+        trainer = P.build_trainer(cfg, device=dev, seed=0)
+        model = trainer.module.model
+    else:
+        model = P.build_model(cfg, device=dev, dtype=torch.bfloat16, seed=0)
 
     marks = defaultdict(list)          # stage -> [(start, end) events]
 
@@ -97,11 +111,31 @@ def main(argv=None):
         return out
     model.calculate_birds_eye_view_features = timed_bev
 
+    if args.train:
+        # the whole forward and the optimizer's update, beside the stages
+        pre, post = hook_pair('forward')
+        trainer.module.register_forward_pre_hook(pre)
+        trainer.module.register_forward_hook(post)
+        pre, post = hook_pair('optimizer')
+        trainer.optimizer.register_step_pre_hook(
+            lambda *_: pre(None, None))
+        trainer.optimizer.register_step_post_hook(
+            lambda *_: post(None, None, None))
+
     def request(seed):
         batch = make_batch(cfg, 1, seed=seed, n_points=80000)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        if args.train:
+            pre, post = hook_pair('step')
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pre(None, None)
+            P.train_step(trainer, batch, generator=gen)
+            post(None, None, None)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
         inputs = P.batch_to_model_args(batch, cfg, device=dev,
                                        image_dtype=torch.bfloat16)
-        gen = torch.Generator(device=dev).manual_seed(seed)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with torch.no_grad():
@@ -116,8 +150,21 @@ def main(argv=None):
     with torch.profiler.profile(activities=acts) as prof:
         lat = [request(seed) for seed in range(1, args.requests + 1)]
     n = args.requests
-    stages = {k: sum(a.elapsed_time(b) for a, b in v) / n
-              for k, v in marks.items()}
+    if args.train:
+        # first pass of each stage only (the second is the recompute inside
+        # the backward), and what is left of the step after the forward and
+        # the optimizer is the loss and the backward
+        per = {k: len(v) // n for k, v in marks.items()}
+        stages = {k: sum(a.elapsed_time(b) for i, (a, b) in enumerate(v)
+                         if k in ('step', 'forward', 'optimizer',
+                                  'camera_lift_pool_total')
+                         or i % per[k] < (per[k] + 1) // 2) / n
+                  for k, v in marks.items()}
+        stages['loss_backward'] = (stages['step'] - stages['forward']
+                                   - stages['optimizer'])
+    else:
+        stages = {k: sum(a.elapsed_time(b) for a, b in v) / n
+                  for k, v in marks.items()}
     # the lift + pool is the camera BEV stage without its encoder
     if 'camera_lift_pool_total' in stages:
         stages['camera_lift_pool'] = (stages.pop('camera_lift_pool_total')
@@ -137,6 +184,7 @@ def main(argv=None):
                    '--format=csv,noheader').read().strip()
     result = {
         'card': smi, 'backbone': args.backbone, 'requests': n,
+        'mode': 'train' if args.train else 'forward',
         'latency_s': lat,
         'median_latency_s': statistics.median(lat),
         'stages_ms': stages,

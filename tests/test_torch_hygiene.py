@@ -32,6 +32,9 @@ def _imports(path):
 def test_no_port_file_imports_jax_or_the_jax_package():
     files = _port_files()
     assert len(files) > 10
+    names = {p.name for p in files}
+    assert {'trainer.py', 'losses.py', 'trainmode.py',
+            'exp_bin_variants.py'} <= names
     bad = [(str(p.relative_to(ROOT)), name) for p in files
            for name in _imports(p)
            if name.split('.')[0] in FORBIDDEN]
@@ -41,7 +44,11 @@ def test_no_port_file_imports_jax_or_the_jax_package():
 def test_import_needs_neither_jax_nor_yaml():
     code = ('import sys, streamingflow_tpu_torch, '
             'streamingflow_tpu_torch.models, streamingflow_tpu_torch.data, '
-            'streamingflow_tpu_torch.convert; '
+            'streamingflow_tpu_torch.convert, '
+            'streamingflow_tpu_torch.layers.trainmode, '
+            'streamingflow_tpu_torch.training.losses, '
+            'streamingflow_tpu_torch.training.trainer, '
+            'streamingflow_tpu_torch.tools.exp_bin_variants; '
             'print(sorted(m for m in ("jax", "flax", "yaml", '
             '"streamingflow_tpu") if m in sys.modules))')
     out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
@@ -62,8 +69,14 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         P.build_model(cfg)
     with pytest.raises(RuntimeError, match='CUDA'):
         P.batch_to_model_args(make_batch(cfg, 1, n_points=16), cfg)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        P.build_trainer(cfg)
+    from streamingflow_tpu_torch.tools import exp_bin_variants
+    with pytest.raises(RuntimeError, match='CUDA'):
+        exp_bin_variants.run((4,), n_clouds=1, n_points=16)
     assert next(P.build_model(cfg, device='cpu').parameters()).device.type \
         == 'cpu'
+    assert P.build_trainer(cfg, device='cpu').device.type == 'cpu'
 
 
 def test_unported_backbone_names_the_roadmap():

@@ -6,7 +6,13 @@ another order, tests/test_patch_pool.py), and the per-frame drop counts are
 equal: the port keeps the JAX kernel's patch budget and drops the same rows.
 The CUDA kernel is held against the plain version on the card by
 chip_smoke.py.
+
+The pool's gradient (a ``torch.autograd.Function``; its plain version here)
+is held against ``jax.vjp`` of the interpret-mode pool at 1e-5, with exactly
+zero gradient for a row the patch budget dropped, and against ordinary
+autograd through the plain version of the forward.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -143,3 +149,79 @@ def test_kernel_wrapper_rejects_other_widths():
                                            dtype=torch.int32),
                             torch.ones(1, 1, 1, 4, 8, dtype=torch.bool),
                             NX, NY)
+
+
+def _grads(x, coords, kept, seed=0):
+    """(Function's gradient, plain version's autograd gradient, jax.vjp's
+    gradient, fits mask) for one random output cotangent."""
+    dout = np.random.RandomState(seed).randn(
+        x.shape[0], NX, NY, 64).astype(np.float32)
+    (_, _), vjp = jax.vjp(
+        lambda v: jpool(v, jnp.asarray(coords), jnp.asarray(kept), NX, NY,
+                        interpret=True), jnp.asarray(x))
+    want = np.asarray(vjp((jnp.asarray(dout),
+                           jnp.zeros(x.shape[0], jnp.float32)))[0])
+    grads = []
+    for pool in (PP.patch_pool_frames, PP.patch_pool_frames_plain):
+        xt = t(x).requires_grad_()
+        out, drops = pool(xt, t(coords), t(kept), NX, NY)
+        assert not drops.requires_grad
+        out.backward(t(dout))
+        grads.append(xt.grad)
+    fits = PP.fits_mask(t(coords), t(kept), NX, NY)[1].numpy()
+    return grads[0], grads[1], want, fits
+
+
+@pytest.mark.parametrize('seed,fw', [(0, 8), (2, 16)])
+def test_gradient_matches_jax_vjp_on_camera_geometry(seed, fw):
+    x, coords, kept = _camera_like(seed, fw=fw, frames=2)
+    got, plain, want, fits = _grads(x, coords, kept, seed)
+    assert got.dtype == torch.float32 and fits.any()
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    # a gather in both: the same values, not only close ones
+    np.testing.assert_array_equal(plain.numpy(), got.numpy())
+    assert not got.numpy()[~fits].any()
+
+
+def test_gradient_is_exactly_zero_for_dropped_rows():
+    """The forced overflow of test_budget_violation_counted_like_pallas:
+    kept rows outside the patch get no gradient, as in jax.vjp; the rows
+    that were summed get their cell's cotangent."""
+    rng = np.random.RandomState(3)
+    x = rng.randn(2, 1, 1, 4, 8, 64).astype(np.float32)
+    coords = rng.randint(0, NX, (2, 1, 1, 4, 8, 2)).astype(np.int32)
+    kept = rng.rand(2, 1, 1, 4, 8) > 0.2
+    got, plain, want, fits = _grads(x, coords, kept)
+    dropped = kept & ~fits
+    assert dropped.any() and fits.any()
+    assert not got.numpy()[dropped].any() and not want[dropped].any()
+    assert not got.numpy()[~kept].any()
+    assert np.abs(got.numpy()[fits]).min() > 0
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(plain.numpy(), got.numpy())
+
+
+def test_gradient_comes_back_in_the_input_dtype_unrounded():
+    """The forward rounds x to bf16, the backward does not: an fp32 x gets
+    the fp32 cotangent, a bf16 x a bf16 gradient."""
+    x, coords, kept = _camera_like(seed=1)
+    dout = torch.full((1, NX, NY, 64), 1.0 + 2.0 ** -12)
+    for dtype in (torch.float32, torch.bfloat16):
+        xt = t(x).to(dtype).requires_grad_()
+        PP.patch_pool_frames(xt, t(coords), t(kept), NX, NY)[0].backward(dout)
+        assert xt.grad.dtype == dtype
+        kept_vals = xt.grad[PP.fits_mask(t(coords), t(kept), NX, NY)[1]]
+        want = dout.flatten()[0].to(dtype)
+        assert (kept_vals == want).all()
+
+
+def test_backward_wrapper_takes_plain_version_only_for_cpu_tensors(
+        monkeypatch):
+    monkeypatch.setattr(PP, 'launches_bwd', 0)
+    x, coords, kept = _camera_like(seed=1)
+    got = PP.patch_pool_grad(torch.ones(1, NX, NY, 64), t(coords), t(kept),
+                             NX, NY, torch.float32)
+    assert PP.launches_bwd == 0 and tuple(got.shape) == x.shape
+    with pytest.raises(ValueError, match='cotangent'):
+        PP._patch_pool_grad_cuda(torch.ones(1, NX, NY, 16), t(coords),
+                                 t(kept), NX, NY, torch.float32)
