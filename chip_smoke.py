@@ -13,7 +13,12 @@ the CUDA toolkit.  Phases, each printing one JSON line:
   2. build       nvcc of every csrc/*.cu, all at once, with its time
   3. bin_sum     kernel vs plain version at flagship shapes (one 80k-point
                  cloud, 1600^2 pillar grid, pillar epilogue, bf16 out,
-                 presorted and unsorted; raw fp32 sums too)
+                 presorted and unsorted; raw fp32 sums too; a hot trash bin
+                 holding half the rows); its time alone on prepared inputs
+                 and through its wrapper, the raw fp32 mode against
+                 index_add_ into a grid zeroed in the same call; the 5
+                 clouds of a request in one launch (pillarize_batch) against
+                 the per-cloud loop and torch.stack
   4. patch_pool  kernel vs plain version at flagship shapes (3 frames x 6
                  cameras x 48 depth bins x 28 x 60 x 64 from the synthetic
                  calibration) and a forced-overflow case
@@ -33,7 +38,8 @@ the CUDA toolkit.  Phases, each printing one JSON line:
                  STREAMINGFLOW_BENCH_BACKBONE=spconv8x, ZFORM=winfuse)
  10. bin_sum_grouped  the grouped bin-sum kernel vs the plain version and vs
                  bin_sum at the same cloud (presorted and unsorted, bf16 and
-                 raw fp32, k_tiles 4 / 8 / 16), then the experiment tool
+                 raw fp32, k_tiles 4 / 8 / 16, alone and through the
+                 wrapper; the hot trash bin), then the experiment tool
                  (tools/exp_bin_variants.py of the port: 5 bench-like clouds)
                  with the kernel's launches read around it
  11. patch_pool_bwd  the pool's gradient on the card (backward kernel) vs the
@@ -103,77 +109,199 @@ def check_close(name, got, want, rtol, atol):
                              f'rtol {rtol}, atol {atol})')
 
 
+def flagship_clouds(cfg, dev):
+    """The 5 tile-sorted flagship clouds of one request (80k points each,
+    1600^2 pillars) and their point masks, as the model takes them."""
+    import torch
+    from streamingflow_tpu_torch.data import make_batch
+    pts = torch.from_numpy(make_batch(cfg, 1, seed=0, n_points=80000)
+                           ['points'][0]).to(dev)
+    return pts, (pts[..., :3] != 0).any(-1)
+
+
 def flagship_cloud_rows(cfg, dev):
     """The bin-sum rows of one flagship cloud (80k points, 1600^2 pillars):
     data (P, 15), pillar ids, bins, point features."""
-    import torch
-    from streamingflow_tpu_torch.data import make_batch
     from streamingflow_tpu_torch.models.pillar_encoder import (pillar_grid,
                                                                pillar_rows)
     se = cfg.MODEL.SPARSE_ENCODER
-    pts = torch.from_numpy(make_batch(cfg, 1, seed=0, n_points=80000)
-                           ['points'][0, 0]).to(dev)
-    data, pid = pillar_rows(pts, (pts[:, :3] != 0).any(-1),
-                            se.POINT_CLOUD_RANGE, se.VOXEL_SIZE)
+    pts, mask = flagship_clouds(cfg, dev)
+    data, pid = pillar_rows(pts[0], mask[0], se.POINT_CLOUD_RANGE,
+                            se.VOXEL_SIZE)
     nx, ny = pillar_grid(se.POINT_CLOUD_RANGE, se.VOXEL_SIZE)
-    return data, pid, nx * ny + 1, pts.shape[1]
+    return data, pid, nx * ny + 1, pts.shape[-1]
 
 
-def bin_sum_bound_ms(data, pid, n_bins):
-    """Rows and ids read once, the bf16 (C, n_bins) output written once;
-    one add a value and a four-operation epilogue a bin."""
+def bin_sum_bound_ms(data, pid, n_bins, out_bytes=2):
+    """Rows and ids read once, the (C, n_bins) output written once (bf16
+    unless ``out_bytes`` says otherwise); one add a value and a
+    four-operation epilogue a bin."""
     c = data.shape[1]
-    n_bytes = data.numel() * 4 + pid.numel() * 4 + c * n_bins * 2
+    n_bytes = data.numel() * 4 + pid.numel() * 4 + c * n_bins * out_bytes
     flops = data.numel() + n_bins * c * 4
     return max(n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3, n_bytes
 
 
-def phase_bin_sum(cfg, dev, results):
-    """K1 at one flagship cloud."""
+# bf16 outputs: fp32 sums in another order may round to the next bf16 value
+# (rel 2^-8); rtol 2^-7 with atol 1e-2 for values near zero.  Raw fp32 sums
+# differ by reassociation only.
+BF16_TOL = dict(rtol=2 ** -7, atol=1e-2)
+FP32_TOL = dict(rtol=1e-5, atol=1e-4)
+
+
+def hot_trash_case(name, fn, data, pid, n_bins, n_feat, **extra):
+    """Every other row moved to the trash bin n_bins - 1 (40k rows on one
+    bin, one block's work): the pillar epilogue in bf16, presorted by a
+    stable sort and unsorted, and raw fp32 sums of integer-valued rows
+    (exact in any order), each against the plain version; returns the
+    errors and the time of the presorted bf16 call."""
     import torch
+    from streamingflow_tpu_torch.ops import bin_sum as B
+    hot = pid.clone()
+    hot[::2] = n_bins - 1
+    hot_sorted, order = torch.sort(hot, stable=True)
+    data_sorted = data[order]
+    kw = dict(pillar_features=n_feat, out_dtype=torch.bfloat16,
+              transposed_out=True)
+    want = B.bin_sum_plain(data, hot, n_bins, **kw)
+    errs = {}
+    for presorted, d, i in ((True, data_sorted, hot_sorted),
+                            (False, data, hot)):
+        got = fn(d, i, n_bins, presorted=presorted, **kw, **extra)
+        torch.cuda.synchronize()
+        check_close(f'{name} hot trash bin presorted={presorted}', got, want,
+                    **BF16_TOL)
+        errs[f'bf16_presorted={presorted}'] = max_err(got, want)[0]
+    gen = torch.Generator(device=data.device).manual_seed(2)
+    ints = torch.randint(-8, 9, data.shape, device=data.device,
+                         generator=gen).float()
+    raw_want = B.bin_sum_plain(ints, hot, n_bins, transposed_out=True)
+    raw = fn(ints[order], hot_sorted, n_bins, presorted=True,
+             transposed_out=True, **extra)
+    torch.cuda.synchronize()
+    check_close(f'{name} hot trash bin raw fp32', raw, raw_want, **FP32_TOL)
+    errs['raw_fp32'] = max_err(raw, raw_want)[0]
+    ms = cuda_ms(lambda: fn(data_sorted, hot_sorted, n_bins, presorted=True,
+                            **kw, **extra))
+    return dict(trash_rows=int((hot == n_bins - 1).sum()), max_abs_err=errs,
+                wrapper_ms=ms)
+
+
+def kernel_alone_ms(data, pid, n_bins, n_feat, out_dtype, k_tiles=None):
+    """The kernel's time on prepared inputs: tile bounds and output made
+    beforehand, one launch a call."""
+    import torch
+    from streamingflow_tpu_torch.ops import bin_sum as B
+    bounds = B.tile_bounds(pid, n_bins)
+    out = torch.empty(1, data.shape[1], B.padded_bins(n_bins),
+                      dtype=out_dtype, device=data.device)
+    return cuda_ms(lambda: B.launch(data, pid, bounds, out, n_bins, n_bins,
+                                    n_bins, n_feat, k_tiles))
+
+
+def phase_bin_sum(cfg, dev, results):
+    """K1 at one flagship cloud (alone, through its wrapper, raw fp32 against
+    index_add_, the hot trash bin), then the 5 clouds of one request in one
+    launch against the per-cloud loop and torch.stack."""
+    import torch
+    from streamingflow_tpu_torch.models import pillar_encoder as PE
     from streamingflow_tpu_torch.ops import bin_sum as B
     data, pid, n_bins, n_feat = flagship_cloud_rows(cfg, dev)
     c = data.shape[1]
     kw = dict(pillar_features=n_feat, out_dtype=torch.bfloat16,
               transposed_out=True)
     want = B.bin_sum_plain(data, pid, n_bins, **kw)
-    # bf16 outputs: fp32 sums in another order may round to the next bf16
-    # value (rel 2^-8); rtol 2^-7 with atol 1e-2 for values near zero
-    tol = dict(rtol=2 ** -7, atol=1e-2)
     errs = []
     for presorted in (True, False):
         got = B.bin_sum(data, pid, n_bins, presorted=presorted, **kw)
         torch.cuda.synchronize()
-        check_close(f'bin_sum presorted={presorted}', got, want, **tol)
+        check_close(f'bin_sum presorted={presorted}', got, want, **BF16_TOL)
         errs.append(max_err(got, want))
     # raw fp32 sums (no epilogue), rows shuffled: fp32 reassociation only
     perm = torch.randperm(data.shape[0], device=dev)
     raw = B.bin_sum(data[perm], pid[perm], n_bins, transposed_out=True)
     raw_want = B.bin_sum_plain(data, pid, n_bins, transposed_out=True)
     torch.cuda.synchronize()
-    check_close('bin_sum raw fp32', raw, raw_want, rtol=1e-5, atol=1e-4)
+    check_close('bin_sum raw fp32', raw, raw_want, **FP32_TOL)
+    hot = hot_trash_case('bin_sum', B.bin_sum, data, pid, n_bins, n_feat)
 
-    sums = torch.zeros(n_bins, c, device=dev)
-    ids64 = pid.long()
-    ms = cuda_ms(lambda: B.bin_sum(data, pid, n_bins, presorted=True, **kw))
+    ms = kernel_alone_ms(data, pid, n_bins, n_feat, torch.bfloat16)
+    wrapper_ms = cuda_ms(lambda: B.bin_sum(data, pid, n_bins, presorted=True,
+                                           **kw))
+    raw_ms = kernel_alone_ms(data, pid, n_bins, None, torch.float32)
     plain_ms = cuda_ms(lambda: B.bin_sum_plain(data, pid, n_bins, **kw))
-    library_ms = cuda_ms(lambda: sums.index_add_(0, ids64, data))
+    ids64 = pid.long()
+    # the honest yardstick of the raw fp32 mode: a zeroed grid and the
+    # scatter, both inside the timed call
+    library_ms = cuda_ms(lambda: torch.zeros(n_bins, c, device=dev)
+                         .index_add_(0, ids64, data))
     bound_ms, n_bytes = bin_sum_bound_ms(data, pid, n_bins)
+    raw_bound_ms = bin_sum_bound_ms(data, pid, n_bins, out_bytes=4)[0]
+
+    # the model's path: 5 clouds, one launch, against the per-cloud loop
+    se = cfg.MODEL.SPARSE_ENCODER
+    pts, mask = flagship_clouds(cfg, dev)
+    args = (se.POINT_CLOUD_RANGE, se.VOXEL_SIZE)
+
+    def batched():
+        return PE.pillarize_batch(pts, mask, *args, out_dtype=torch.bfloat16,
+                                  presorted=True)
+
+    def loop():
+        return torch.stack([
+            PE.pillarize(pts[i], mask[i], *args, out_dtype=torch.bfloat16,
+                         presorted=True, layout='cf')
+            for i in range(pts.shape[0])])
+    before = B.launches
+    got5 = batched()
+    torch.cuda.synchronize()
+    if B.launches != before + 1:
+        raise AssertionError(f'pillarize_batch launched K1 '
+                             f'{B.launches - before} times, not once')
+    want5 = loop()
+    data5, pid5 = PE.pillar_rows(pts.flatten(0, 1), mask.flatten(), *args)
+    nx, ny = PE.pillar_grid(*args)
+    per_cloud = PE.cloud_bins(nx * ny)
+    pid5 = pid5 + torch.arange(pts.shape[0], device=dev).repeat_interleave(
+        pts.shape[1]) * per_cloud
+    plain5 = B.bin_sum_clouds_plain(
+        data5, pid5, pts.shape[0], per_cloud, nx * ny, n_feat,
+        torch.bfloat16).reshape(got5.shape)
+    torch.cuda.synchronize()
+    check_close('pillarize_batch vs the per-cloud loop', got5, want5,
+                **BF16_TOL)
+    check_close('pillarize_batch vs the plain version', got5, plain5,
+                **BF16_TOL)
+    batched_ms = cuda_ms(batched)
+    loop_ms = cuda_ms(loop)
+
     results['bin_sum'] = dict(
-        max_abs_err=errs[0][0], ms=ms, plain_ms=plain_ms,
-        library_ms=library_ms, bound_ms=bound_ms, bound_by='bytes')
+        max_abs_err=errs[0][0], ms=ms, wrapper_ms=wrapper_ms,
+        plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+        bound_by='bytes')
     emit({'phase': 'bin_sum', 'points': int(data.shape[0]), 'n_bins': n_bins,
           'channels': c, 'max_abs_err_presorted': errs[0][0],
           'max_rel_err_presorted': errs[0][1],
-          'max_abs_err_unsorted': errs[1][0], 'tolerance': tol,
-          'kernel_ms': ms, 'twin_ms': plain_ms, 'library_ms': library_ms,
-          'library_call': 'index_add_ of the raw sums (no epilogue)',
-          'bound_us': bound_ms * 1e3, 'bytes': n_bytes})
+          'max_abs_err_unsorted': errs[1][0], 'tolerance': BF16_TOL,
+          'raw_tolerance': FP32_TOL, 'kernel_ms': ms,
+          'wrapper_ms': wrapper_ms, 'raw_fp32_kernel_ms': raw_ms,
+          'raw_fp32_bound_us': raw_bound_ms * 1e3, 'twin_ms': plain_ms,
+          'library_ms': library_ms,
+          'library_call': 'torch.zeros((n_bins, C)).index_add_ of the raw '
+                          'fp32 sums, the zeroing inside the timed call (the '
+                          'raw fp32 mode\'s function; no epilogue)',
+          'bound_us': bound_ms * 1e3, 'bytes': n_bytes, 'hot_trash': hot,
+          'clouds': {'n': pts.shape[0],
+                     'max_abs_err_vs_loop': max_err(got5, want5)[0],
+                     'max_abs_err_vs_plain': max_err(got5, plain5)[0],
+                     'batched_ms': batched_ms, 'loop_and_stack_ms': loop_ms,
+                     'batched_launches': 1}})
 
 
 def phase_bin_sum_grouped(cfg, dev, results):
     """The grouped bin-sum at one flagship cloud, against the plain version
-    and bin_sum; then the experiment tool's path, its launches counted."""
+    and bin_sum, alone and through its wrapper, and the hot trash bin; then
+    the experiment tool's path, its launches counted."""
     import torch
     from streamingflow_tpu_torch.ops import bin_sum as B
     from streamingflow_tpu_torch.tools import exp_bin_variants
@@ -184,33 +312,34 @@ def phase_bin_sum_grouped(cfg, dev, results):
     base = B.bin_sum(data, pid, n_bins, presorted=True, **kw)
     raw_want = B.bin_sum_plain(data, pid, n_bins, transposed_out=True)
     perm = torch.randperm(data.shape[0], device=dev)
-    # bin_sum's tolerances: bf16 outputs of fp32 sums in another order may
-    # round to the next bf16 value; raw fp32 sums differ by reassociation
-    tol = dict(rtol=2 ** -7, atol=1e-2)
-    errs, ms = {}, {}
+    errs, ms, wrapper_ms = {}, {}, {}
     for k in (4, 8, 16):
         for presorted in (True, False):
             got = B.bin_sum_grouped(data, pid, n_bins, presorted=presorted,
                                     k_tiles=k, **kw)
             torch.cuda.synchronize()
             name = f'bin_sum_grouped k_tiles={k} presorted={presorted}'
-            check_close(name + ' vs plain', got, want, **tol)
-            check_close(name + ' vs bin_sum', got, base, **tol)
+            check_close(name + ' vs plain', got, want, **BF16_TOL)
+            check_close(name + ' vs bin_sum', got, base, **BF16_TOL)
             if presorted:
                 errs[str(k)] = max_err(got, want)[0]
         raw = B.bin_sum_grouped(data[perm], pid[perm], n_bins,
                                 transposed_out=True, k_tiles=k)
         torch.cuda.synchronize()
         check_close(f'bin_sum_grouped k_tiles={k} raw fp32', raw, raw_want,
-                    rtol=1e-5, atol=1e-4)
-        ms[str(k)] = cuda_ms(lambda: B.bin_sum_grouped(
+                    **FP32_TOL)
+        ms[str(k)] = kernel_alone_ms(data, pid, n_bins, n_feat,
+                                     torch.bfloat16, k_tiles=k)
+        wrapper_ms[str(k)] = cuda_ms(lambda: B.bin_sum_grouped(
             data, pid, n_bins, presorted=True, k_tiles=k, **kw))
-    bin_sum_ms = cuda_ms(lambda: B.bin_sum(data, pid, n_bins, presorted=True,
-                                           **kw))
+    hot = hot_trash_case('bin_sum_grouped', B.bin_sum_grouped, data, pid,
+                         n_bins, n_feat, k_tiles=8)
+    bin_sum_ms = kernel_alone_ms(data, pid, n_bins, n_feat, torch.bfloat16)
     plain_ms = cuda_ms(lambda: B.bin_sum_plain(data, pid, n_bins, **kw))
-    sums = torch.zeros(n_bins, data.shape[1], device=dev)
     ids64 = pid.long()
-    library_ms = cuda_ms(lambda: sums.index_add_(0, ids64, data))
+    library_ms = cuda_ms(lambda: torch.zeros(n_bins, data.shape[1],
+                                             device=dev)
+                         .index_add_(0, ids64, data))
     bound_ms, n_bytes = bin_sum_bound_ms(data, pid, n_bins)
 
     # the kernel's own path: the experiment tool, counts read around it
@@ -222,14 +351,17 @@ def phase_bin_sum_grouped(cfg, dev, results):
                              'kernel')
     results['bin_sum_grouped'] = dict(
         launches=launches, max_abs_err=errs['8'], ms=ms['8'],
-        plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-        bound_by='bytes')
+        wrapper_ms=wrapper_ms['8'], plain_ms=plain_ms,
+        library_ms=library_ms, bound_ms=bound_ms, bound_by='bytes')
     emit({'phase': 'bin_sum_grouped', 'points': int(data.shape[0]),
-          'n_bins': n_bins, 'max_abs_err_by_k_tiles': errs, 'tolerance': tol,
-          'kernel_ms_by_k_tiles': ms, 'bin_sum_ms': bin_sum_ms,
+          'n_bins': n_bins, 'max_abs_err_by_k_tiles': errs,
+          'tolerance': BF16_TOL, 'kernel_ms_by_k_tiles': ms,
+          'wrapper_ms_by_k_tiles': wrapper_ms, 'bin_sum_kernel_ms': bin_sum_ms,
           'twin_ms': plain_ms, 'library_ms': library_ms,
-          'bound_us': bound_ms * 1e3, 'bytes': n_bytes,
-          'tool_launches': launches, 'tool': tool})
+          'library_call': 'torch.zeros((n_bins, C)).index_add_, as in phase '
+                          'bin_sum', 'bound_us': bound_ms * 1e3,
+          'bytes': n_bytes, 'hot_trash': hot, 'tool_launches': launches,
+          'tool': tool})
 
 
 def flagship_pool_inputs(cfg, dev, gen):
@@ -660,23 +792,21 @@ def phase_forward(cfg, dev, n_requests, card, n_points=80000):
     from streamingflow_tpu_torch.ops import bin_sum as B
     from streamingflow_tpu_torch.ops import patch_pool as PP
     from streamingflow_tpu_torch.ops import winfuse as WF
-    from streamingflow_tpu_torch.data.synthetic import n_lidar_sweeps
     model = P.build_model(cfg, device=dev, dtype=torch.bfloat16, seed=0)
     spconv = cfg.MODEL.LIDAR.BACKBONE == 'spconv8x'
-    n_clouds = n_lidar_sweeps(cfg)
     s = cfg.TIME_RECEPTIVE_FIELD
     t = s + cfg.N_FUTURE_FRAMES
     nx, ny = (int(v) for v in model.bev_dimension[:2])
     n = len(cfg.IMAGE.NAMES)
     d, fh, fw = model.frustum.shape[:3]
     counters = {'bin_sum': B, 'patch_pool': PP, 'winfuse': WF}
-    # pillar8x: one bin-sum a cloud; spconv8x: one K3 launch over the
-    # stacked clouds per submanifold conv (conv_input and the two convs of
-    # each block of stages 1 and 2)
+    # pillar8x: one bin-sum for all clouds; spconv8x: one K3 launch over
+    # the stacked clouds per submanifold conv (conv_input and the two convs
+    # of each block of stages 1 and 2)
     se = cfg.MODEL.SPARSE_ENCODER
     blocks = [len(c) - 1 for c in se.ENCODER_CHANNELS[:2]]
     expect = ({'bin_sum': 0, 'winfuse': 1 + 2 * sum(blocks)} if spconv
-              else {'bin_sum': n_clouds, 'winfuse': 0})
+              else {'bin_sum': 1, 'winfuse': 0})
 
     def request(seed):
         batch = make_batch(cfg, 1, seed=seed, n_points=n_points)
@@ -863,12 +993,11 @@ def phase_train(cfg, dev, n_steps, card, n_points=80000):
     import torch
     import streamingflow_tpu_torch as P
     from streamingflow_tpu_torch.data import make_batch
-    from streamingflow_tpu_torch.data.synthetic import n_lidar_sweeps
     from streamingflow_tpu_torch.ops import bin_sum as B
     from streamingflow_tpu_torch.ops import patch_pool as PP
     trainer = P.build_trainer(cfg, device=dev, seed=0)
-    expect = {'bin_sum': n_lidar_sweeps(cfg), 'patch_pool': 1,
-              'patch_pool_bwd': 1}
+    # one bin-sum for all the step's clouds
+    expect = {'bin_sum': 1, 'patch_pool': 1, 'patch_pool_bwd': 1}
 
     def counts():
         return {'bin_sum': B.launches, 'patch_pool': PP.launches,

@@ -2,8 +2,9 @@
 
 Port of streamingflow_tpu/models/pillar_encoder.py:
 
-  points -> pillar statistics by one bin-sum per cloud (ops/bin_sum.py,
-            a hand-written CUDA kernel on the card), bf16, channel first
+  points -> pillar statistics of all clouds by one bin-sum
+            (ops/bin_sum.py::bin_sum_clouds, a hand-written CUDA kernel on
+            the card), bf16, channel first
          -> space-to-depth 4x (channel order (sx*4+sy)*F + c)
          -> dense 2D conv stages 3 and 4 (BN eps 1e-3)
          -> (B, T, 2*OUTPUT_CHANNELS, X/8, Y/8) BEV features.
@@ -19,7 +20,7 @@ from torch import nn
 
 from ..config import SparseEncoderConfig
 from ..layers.conv import batch_norm, conv2d
-from ..ops.bin_sum import bin_sum
+from ..ops.bin_sum import BINS_PER_TILE, bin_sum_clouds
 
 
 def pillar_grid(point_cloud_range, voxel_size):
@@ -61,17 +62,43 @@ def pillarize(points: torch.Tensor, point_mask: torch.Tensor,
               presorted: bool = False, layout: str = 'bev') -> torch.Tensor:
     """points (P, C>=3) -> pillar features (nx, ny, F), or (F, nx, ny) with
     ``layout='cf'``.  F = 1 + C + 1 + n_z_bins: log1p count, feature means,
-    z std and z occupancy, all from one bin-sum of :func:`pillar_rows`."""
+    z std and z occupancy, all from one bin-sum of :func:`pillar_rows`
+    (:func:`pillarize_batch` of the one cloud)."""
+    feats = pillarize_batch(points[None], point_mask[None], point_cloud_range,
+                            voxel_size, n_z_bins, out_dtype, presorted)[0]
+    return feats if layout == 'cf' else feats.permute(1, 2, 0)
+
+
+def pillarize_batch(points: torch.Tensor, point_mask: torch.Tensor,
+                    point_cloud_range, voxel_size, n_z_bins: int = 8,
+                    out_dtype: torch.dtype = torch.float32,
+                    presorted: bool = False) -> torch.Tensor:
+    """:func:`pillarize` of clouds (N, P, C) -> (N, F, nx, ny) in one
+    bin-sum (the JAX package's ``pillarize_batch``).  Cloud k's pillar ids
+    are offset by k times the cloud's bins rounded up to a whole tile, so
+    tiles never straddle clouds and each cloud's tile-sorted rows stay
+    sorted; the kernel writes each cloud's statistics straight into its
+    slice of the result, and the trash bin nx*ny is never stored."""
     nx, ny = pillar_grid(point_cloud_range, voxel_size)
-    data, pid = pillar_rows(points, point_mask, point_cloud_range,
-                            voxel_size, n_z_bins)
+    n, p, c = points.shape
     n_pillars = nx * ny
-    feats = bin_sum(data, pid, n_pillars + 1,
-                    pillar_features=points.shape[1], out_dtype=out_dtype,
-                    presorted=presorted, transposed_out=True)[:, :n_pillars]
-    if layout == 'cf':
-        return feats.reshape(-1, nx, ny)
-    return feats.t().reshape(nx, ny, -1)
+    data, pid = pillar_rows(points.reshape(n * p, c),
+                            point_mask.reshape(n * p), point_cloud_range,
+                            voxel_size, n_z_bins)
+    per_cloud = cloud_bins(n_pillars)
+    first = torch.arange(0, n * per_cloud, per_cloud, dtype=pid.dtype,
+                         device=pid.device)
+    pid = (pid.view(n, p) + first[:, None]).view(-1)
+    feats = bin_sum_clouds(data, pid, n, per_cloud, n_pillars,
+                           pillar_features=c, out_dtype=out_dtype,
+                           presorted=presorted)
+    return feats.reshape(n, -1, nx, ny)
+
+
+def cloud_bins(n_pillars: int) -> int:
+    """Bins a cloud takes in :func:`pillarize_batch`: its pillars and the
+    trash bin, rounded up to a whole bin-sum tile."""
+    return -(-(n_pillars + 1) // BINS_PER_TILE) * BINS_PER_TILE
 
 
 class ConvBNReLU(nn.Module):
@@ -115,7 +142,8 @@ class PillarBEVEncoder(nn.Module):
 
     def pillar_features(self, points):
         """points (B, T, P, C) -> bf16 pillar statistics (B, T, F, nx, ny),
-        one bin-sum a cloud; no gradient flows (the input is points)."""
+        one bin-sum for all clouds; no gradient flows (the input is
+        points)."""
         cfg = self.cfg
         B, T, P, C = points.shape
         if C != cfg.IN_CHANNELS:
@@ -123,11 +151,10 @@ class PillarBEVEncoder(nn.Module):
                              f'SPARSE_ENCODER.IN_CHANNELS is {cfg.IN_CHANNELS}')
         flat = points.reshape(B * T, P, C)
         pmask = (flat[..., :3] != 0).any(dim=-1)
-        h = torch.stack([
-            pillarize(flat[i], pmask[i], cfg.POINT_CLOUD_RANGE,
-                      cfg.VOXEL_SIZE, self.n_z_bins, out_dtype=torch.bfloat16,
-                      presorted=self.tile_sorted, layout='cf')
-            for i in range(B * T)])                       # (BT, F, nx, ny)
+        h = pillarize_batch(flat, pmask, cfg.POINT_CLOUD_RANGE,
+                            cfg.VOXEL_SIZE, self.n_z_bins,
+                            out_dtype=torch.bfloat16,
+                            presorted=self.tile_sorted)   # (BT, F, nx, ny)
         return h.reshape(B, T, *h.shape[1:])
 
     def ladder(self, h):

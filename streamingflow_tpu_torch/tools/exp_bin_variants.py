@@ -1,6 +1,8 @@
-"""Experiment: does the grouped bin-sum kernel beat the shipped one?
+"""Experiment: does the grouped bin-sum kernel beat the shipped one, and
+which sub-tile size should the shipped one take?
 
     python3 -m streamingflow_tpu_torch.tools.exp_bin_variants [k_tiles ...]
+        [--sub-bins 128 256 512 1024 2048]
 
 Port of the JAX package's tools/exp_bin_variants.py.  The pillar bin-sum
 (ops/bin_sum.py::bin_sum, one 2048-bin tile a block) is compared with
@@ -10,21 +12,30 @@ accumulating) on the same bench-like rows: 5 clouds of 80k points on the
 1600 x 1600 pillar grid, host-sorted by pillar id, pillar epilogue, bf16
 out.  Each ``k_tiles`` (4, 8 and 16 unless given) is first held against the
 shipped kernel and against the plain PyTorch version, then timed with CUDA
-events over the 5 clouds.  Prints one JSON line with the card's name and
-power limit.  Needs a CUDA card; raises without one.
+events over the 5 clouds.  The shipped kernel is also timed as the model
+calls it, all 5 clouds in one launch (``bin_sum_clouds``).  ``--sub-bins``
+builds csrc/bin_sum.cu once for each sub-tile size (``BIN_SUM_SUB_BINS``, a
+divisor of the 2048-bin tile), holds each build against the shipped
+kernel, and times each alone on prepared inputs (tile bounds and output
+made beforehand) over the 5 clouds in one launch.  Prints one JSON line
+with the card's name and power limit.  Needs a CUDA card; raises without
+one.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
-import sys
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..models.pillar_encoder import cloud_bins
 from ..ops import bin_sum as B
+from ..ops import cuda_lib
 
 POINT_CLOUD_RANGE = (-50.0, -50.0, -5.0, 50.0, 50.0, 3.0)
 VOXEL_SIZE = (0.0625, 0.0625, 0.2)
@@ -88,10 +99,12 @@ def _event_ms(fn, reps: int) -> float:
 
 
 def run(k_list: Sequence[int] = (4, 8, 16), device=None, n_clouds: int = 5,
-        n_points: int = 80000, reps: int = 10) -> Dict:
+        n_points: int = 80000, reps: int = 10,
+        sub_bins: Sequence[int] = ()) -> Dict:
     """Check every ``k_tiles`` of ``k_list`` against the shipped kernel and
     the plain version, then time them (on a CUDA device; a CPU run, where
-    every wrapper takes the plain version, checks only)."""
+    every wrapper takes the plain version, checks only); then the sub-tile
+    sizes ``sub_bins`` of the shipped kernel (CUDA only)."""
     dev = resolve_device(device)
     datas, idss, n_bins = bench_rows(n_clouds, n_points)
     datas = torch.from_numpy(datas).to(dev)
@@ -121,10 +134,29 @@ def run(k_list: Sequence[int] = (4, 8, 16), device=None, n_clouds: int = 5,
                     f'max abs {float((got - want).abs().max()):.3g}')
             result[f'max_abs_diff_vs_{name}'][str(k)] = float(
                 (got - want).abs().max())
+    # the model's form: the clouds' bins side by side, one launch
+    n_store = n_bins - 1
+    per_cloud = cloud_bins(n_store)
+    flat = datas.reshape(-1, datas.shape[-1])
+    flat_ids = (idss + torch.arange(n_clouds, device=dev)[:, None]
+                * per_cloud).reshape(-1).to(torch.int32)
+
+    def batched():
+        return B.bin_sum_clouds(flat, flat_ids, n_clouds, per_cloud,
+                                n_store, **kw)
+    got = batched().float()
+    if not torch.allclose(got, base.transpose(1, 2)[..., :n_store],
+                          **TOLERANCE):
+        raise AssertionError('bin_sum_clouds disagrees with bin_sum')
     if dev.type != 'cuda':
         return result
     result['bin_sum_ms_5_clouds'] = _event_ms(
         lambda: over_clouds(B.bin_sum), reps)
+    result['bin_sum_clouds_ms_5_clouds'] = _event_ms(batched, reps)
+    if sub_bins:
+        result['kernel_ms_5_clouds_by_sub_bins'] = _sub_tile_variants(
+            sub_bins, flat, flat_ids, n_clouds, per_cloud, n_store, got,
+            reps)
     result['grouped_ms_5_clouds'] = {
         str(k): _event_ms(lambda: over_clouds(B.bin_sum_grouped, k_tiles=k),
                           reps) for k in k_list}
@@ -135,9 +167,38 @@ def run(k_list: Sequence[int] = (4, 8, 16), device=None, n_clouds: int = 5,
     return result
 
 
+def _sub_tile_variants(sub_bins, data, ids, n_clouds, per_cloud, n_store,
+                       want, reps) -> Dict[str, float]:
+    """K1 built with each sub-tile size, checked against ``want`` (the
+    shipped kernel's result) and timed alone on prepared inputs."""
+    variants = [(f'BIN_SUM_SUB_BINS={s}',) for s in sub_bins]
+    with ThreadPoolExecutor(len(variants)) as pool:   # one nvcc each
+        list(pool.map(lambda d: cuda_lib.build(['bin_sum'], d), variants))
+    n_bins = n_clouds * per_cloud
+    bounds = B.tile_bounds(ids, n_bins)
+    out = torch.empty(n_clouds, data.shape[1], B.padded_bins(n_store),
+                      dtype=torch.bfloat16, device=data.device)
+    times = {}
+    for s, defines in zip(sub_bins, variants):
+        def once():
+            B.launch(data, ids, bounds, out, n_bins, per_cloud, n_store,
+                     N_FEAT, defines=defines)
+        once()
+        got = out[..., :n_store].float()
+        if not torch.allclose(got, want, **TOLERANCE):
+            raise AssertionError(f'bin_sum with {s}-bin sub-tiles disagrees '
+                                 f'with the shipped kernel: max abs '
+                                 f'{float((got - want).abs().max()):.3g}')
+        times[str(s)] = _event_ms(once, reps)
+    return times
+
+
 def main(argv=None):
-    ks = [int(a) for a in (sys.argv[1:] if argv is None else argv)]
-    print(json.dumps(run(ks or (4, 8, 16))))
+    ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('k_tiles', type=int, nargs='*', default=[4, 8, 16])
+    ap.add_argument('--sub-bins', type=int, nargs='*', default=[])
+    args = ap.parse_args(argv)
+    print(json.dumps(run(args.k_tiles, sub_bins=args.sub_bins)))
 
 
 if __name__ == '__main__':
