@@ -25,7 +25,10 @@ the CUDA toolkit.  Phases, each printing one JSON line:
   5. winfuse     K3 vs plain version at flagship geometry (the 5 clouds of
                  one request voxelized into columns: conv_input 5->16 and
                  stage 1 16->16 at nz 41, stage 2 32->32 at nz 21 behind the
-                 plain down1, bf16 and fp32) and a forced-drop plan
+                 plain down1, bf16 on the tensor cores and fp32 on the CUDA
+                 cores; 16->16 at the tiny config's nz 25) and a forced-drop
+                 plan, with the route of each case and the kernels' ptxas
+                 report (registers, spills)
   6. tiny        a tiny camera+LiDAR forward on the card (kernels) vs the
                  same weights on the CPU (plain versions)
   7. tiny_spconv the same on the spconv8x backbone ('winfuse')
@@ -578,8 +581,10 @@ def _winfuse_case(name, feats, geo, w, nz, zmask=None, reps=10):
     plain_ms = cuda_ms(lambda: WF.subm_conv_plain(feats, geo.nbr, geo.found,
                                                   w, nz), reps=3, warmup=1)
     return dict(case=name, dtype=str(feats.dtype).split('.')[-1], nz=nz,
-                cin=cin, cout=cout, rows=geo.nbr.shape[1], rows_read=n_rows,
-                found_taps=n_found, max_abs_err=max_err(got, want)[0],
+                cin=cin, cout=cout, route=WF.route(feats.dtype),
+                rows=geo.nbr.shape[1], rows_read=n_rows, found_taps=n_found,
+                found_share=n_found / geo.found.numel(),
+                max_abs_err=max_err(got, want)[0],
                 max_abs_want=scale, tolerance=tol, kernel_ms=ms,
                 twin_ms=plain_ms, bytes=n_bytes, flops=flops,
                 flops_dense_z=flops_dense,
@@ -587,14 +592,17 @@ def _winfuse_case(name, feats, geo, w, nz, zmask=None, reps=10):
                 bound_by='bytes' if t_bytes >= t_ops else 'operations')
 
 
-def phase_winfuse(dev, results):
-    """K3 at the flagship spconv8x geometry of one request (5 clouds of 80k
-    points), stacked as the main path launches it, and a forced drop."""
+def k3_inputs(dev):
+    """K3's inputs at the flagship spconv8x geometry of one request (the 5
+    clouds of 80k points voxelized into columns, stacked as the main path
+    launches it), random features from seed 0 zeroed at the inactive sites
+    as on the main path: the three bf16 cases {name: (feats, geo, weights,
+    nz, zmask)}, and what phase_winfuse builds its other cases from."""
+    import types
     import torch
     from streamingflow_tpu_torch.data import flagship_config, make_batch
     from streamingflow_tpu_torch.models import lidar_encoder as L
     from streamingflow_tpu_torch.ops import sparse_columns as SC
-    from streamingflow_tpu_torch.ops import winfuse as WF
     cfg = flagship_config(backbone='spconv8x')
     se = cfg.MODEL.SPARSE_ENCODER
     pts = torch.from_numpy(make_batch(cfg, 1, seed=0, n_points=80000)
@@ -623,30 +631,80 @@ def phase_winfuse(dev, results):
             SC.cloud(cs1._replace(feats=feats16), i), w_down1, (3, 3, 3),
             (2, 2, 2), (1, 1, 1), shape1, se.COLUMN_CAPS[1])[0]
     cs2 = SC.stack_sets([down1(i) for i in range(n)])
-    down1_ms = cuda_ms(lambda: down1(0), reps=3, warmup=1)
     shape2 = SC.conv_out_shape(shape1, (3, 3, 3), (2, 2, 2), (1, 1, 1))
     geo2 = L.column_geometry(cs2, shape2[:2], se)
     nz2 = shape2[2]
-    cap2 = cs2.col_ids.shape[1]
 
-    def path_like(cs, nz, c):
+    def path_like(cs, nz, c, zmask=None):
+        zmask = cs.zmask if zmask is None else zmask
         return SC.mask_fused(rand(n, cs.col_ids.shape[1], nz * c),
-                             cs.zmask).reshape(-1, nz * c)
+                             zmask).reshape(-1, nz * c)
 
-    cases = [
-        _winfuse_case('conv_input', SC.mask_fused(
-            cs1.feats, cs1.zmask).reshape(n * cap1, -1), geo1,
-            weights(5, 16), nz1, cs1.zmask),
-        _winfuse_case('stage1', path_like(cs1, nz1, 16), geo1,
-                      weights(16, 16), nz1, cs1.zmask),
-        _winfuse_case('stage2', path_like(cs2, nz2, 32), geo2,
-                      weights(32, 32), nz2, cs2.zmask),
+    cases = {
+        'conv_input': (SC.mask_fused(cs1.feats, cs1.zmask).reshape(
+            n * cap1, -1), geo1, weights(5, 16), nz1, cs1.zmask),
+        'stage1': (path_like(cs1, nz1, 16), geo1, weights(16, 16), nz1,
+                   cs1.zmask),
+        'stage2': (path_like(cs2, nz2, 32), geo2, weights(32, 32), nz2,
+                   cs2.zmask),
+    }
+    return cases, types.SimpleNamespace(
+        se=se, n=n, cs1=cs1, cs2=cs2, geo1=geo1, geo2=geo2, shape2=shape2,
+        nz1=nz1, nz2=nz2, cap1=cap1, cap2=cs2.col_ids.shape[1], rand=rand,
+        weights=weights, path_like=path_like, down1=down1)
+
+
+def _ptxas_report(log):
+    """Registers, spills and stack of each kernel in an nvcc -Xptxas -v
+    log."""
+    import re
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill stores, '
+                      r'(\d+) bytes spill loads', line)
+        if m and name:
+            out.append({'kernel': name, 'stack_bytes': int(m.group(1)),
+                        'spill_stores': int(m.group(2)),
+                        'spill_loads': int(m.group(3))})
+        m = re.search(r'Used (\d+) registers', line)
+        if m and out and out[-1]['kernel'] == name:
+            out[-1]['registers'] = int(m.group(1))
+    return out
+
+
+def phase_winfuse(dev, results):
+    """K3 at the flagship spconv8x geometry of one request (5 clouds of 80k
+    points), stacked as the main path launches it, and a forced drop."""
+    import torch
+    from streamingflow_tpu_torch.models import lidar_encoder as L
+    from streamingflow_tpu_torch.ops import cuda_lib
+    from streamingflow_tpu_torch.ops import sparse_columns as SC
+    from streamingflow_tpu_torch.ops import winfuse as WF
+    inputs, x = k3_inputs(dev)
+    se, n, cap1, cap2, nz1, nz2 = x.se, x.n, x.cap1, x.cap2, x.nz1, x.nz2
+    rand, weights, cs1, cs2 = x.rand, x.weights, x.cs1, x.cs2
+    geo1, geo2, shape2 = x.geo1, x.geo2, x.shape2
+    down1_ms = cuda_ms(lambda: x.down1(0), reps=3, warmup=1)
+    cases = [_winfuse_case(name, f, geo, w, nz, zmask)
+             for name, (f, geo, w, nz, zmask) in inputs.items()]
+    # the wrapper's copy of conv_input's rows (Cin 5) to an 8-channel pitch,
+    # inside conv_input's time above
+    f0, _, _, nz0, _ = inputs['conv_input']
+    pitch_ms = cuda_ms(lambda: WF.pitch_rows(f0, nz0, 8))
+    cases += [
         _winfuse_case('stage1_fp32_dense', rand(n * cap1, nz1 * 16,
                                                 dtype=torch.float32),
                       geo1, weights(16, 16, torch.float32), nz1, reps=3),
         _winfuse_case('stage2_fp32_dense', rand(n * cap2, nz2 * 32,
                                                 dtype=torch.float32),
                       geo2, weights(32, 32, torch.float32), nz2, reps=3),
+        # the tiny config's z (25) on the stage-1 columns, their first 25 z
+        _winfuse_case('nz25', x.path_like(cs1, 25, 16, cs1.zmask[..., :25]),
+                      geo1, weights(16, 16), 25, cs1.zmask[..., :25]),
     ]
     # forced drop: a window of one block plus 8 rows and no residual
     # blocks; the drop count on the card equals the count on the CPU
@@ -684,7 +742,9 @@ def phase_winfuse(dev, results):
                         'stage2': geo2.n_dropped.tolist(),
                         'forced': drops},
           'cases': cases,
+          'ptxas': _ptxas_report(cuda_lib.BUILD_LOG.get('winfuse', '')),
           'down1_plain_ms_per_cloud': down1_ms,
+          'conv_input_pitch_rows_ms': pitch_ms,
           'forecast_ms_est': ms['conv_input'] + 4 * ms['stage1']
           + 4 * ms['stage2'],
           'library_call': 'none: no one call computes this function'})

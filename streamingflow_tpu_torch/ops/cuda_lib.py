@@ -40,12 +40,14 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
             [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
         'sf_patch_pool_bwd':
             [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
-    'winfuse': {'sf_winfuse': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
+    'winfuse': {'sf_winfuse_fp32': [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+                'sf_winfuse_bf16': [_P, _P, _P, _P, _I, _I, _I, _I, _P]},
 }
 
 _LIBS: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 _FUNCS: Dict[Tuple[str, Tuple[str, ...]], ctypes._CFuncPtr] = {}
-# ptxas report (registers, shared memory, spills) of each build
+# ptxas report (registers, shared memory, spills) of each library, from
+# its build in this process or from the log kept beside it
 BUILD_LOG: Dict[str, str] = {}
 
 
@@ -82,6 +84,9 @@ def build(names: Iterable[str] = tuple(SIGNATURES),
         out = library_path(name, defines)
         paths[name] = out
         if out.exists():
+            log = out.with_suffix('.log')
+            if log.exists():
+                BUILD_LOG[' '.join((name, *defines))] = log.read_text()
             continue
         tmp = out.with_suffix(f'.{os.getpid()}.tmp')
         procs[name] = (tmp, subprocess.Popen(
@@ -96,6 +101,7 @@ def build(names: Iterable[str] = tuple(SIGNATURES),
             failed.append(f'--- {name} ---\n{log}')
             tmp.unlink(missing_ok=True)
         else:
+            paths[name].with_suffix('.log').write_text(log)
             os.replace(tmp, paths[name])
     if failed:
         raise RuntimeError('nvcc failed:\n' + '\n'.join(failed))

@@ -19,7 +19,9 @@ the same function, drops included, without the windows.
 On a CUDA tensor :func:`subm_conv_winfuse` launches the hand-written kernel
 csrc/winfuse.cu; on a CPU tensor it takes the plain PyTorch version
 :func:`subm_conv_plain`.  There is no fallback from the kernel to the plain
-version.
+version.  bf16 features go to the tensor-core kernel, which takes its
+inputs as :func:`pitch_rows` and :func:`tap_weights` prepare them; fp32
+features go to the exact CUDA-core kernel (:func:`route`).
 """
 from __future__ import annotations
 
@@ -31,7 +33,8 @@ from .voxelize import LARGE_ID
 
 # widths the kernel takes: Cin, Cout of the column stages (5, 16, 32)
 MAX_CHANNELS = 32
-# the kernel gives each output z of a tile of columns one thread
+# z the kernels take (the fp32 kernel gives each output z of a tile of
+# columns one thread)
 MAX_NZ = 256
 
 # kernel launches since the last reset (chip_smoke.py reads it)
@@ -112,6 +115,44 @@ def subm_conv_winfuse(feats: torch.Tensor, nbr: torch.Tensor,
     return _winfuse_cuda(feats, nbr, found, weights, nz)
 
 
+def route(dtype: torch.dtype) -> str:
+    """Which units compute the kernel's products for features of ``dtype``."""
+    return ('tensor cores (mma.sync bf16, fp32 sums)'
+            if dtype == torch.bfloat16 else 'CUDA cores (fp32 FMA)')
+
+
+def channel_pitch(cin: int) -> int:
+    """Channels of a z row as the tensor-core kernel stages it (8, 16 or
+    32): whole 16-byte chunks of bf16, one ldmatrix row each."""
+    return 8 if cin <= 8 else 16 if cin <= 16 else 32
+
+
+def tap_weights(weights: torch.Tensor, cp: int) -> torch.Tensor:
+    """(27, Cin, Cout) -> the tensor-core kernel's per-tap B, (9, K, N) bf16:
+    B[k, tz*cp + i, j] = weights[3k + tz, i, j], zero for i >= Cin, for
+    j >= Cout and in the K rows past 3*cp.  K = 3*cp rounded up to 16 (the
+    mma's depth), N = 16 if Cout <= 16 else 32."""
+    _, cin, cout = weights.shape
+    k = -(-3 * cp // 16) * 16
+    n = 16 if cout <= 16 else 32
+    b = weights.new_zeros(9, k, n, dtype=torch.bfloat16)
+    b[:, :3 * cp].view(9, 3, cp, n)[:, :, :cin, :cout] = \
+        weights.reshape(9, 3, cin, cout)
+    return b
+
+
+def pitch_rows(feats: torch.Tensor, nz: int, cp: int) -> torch.Tensor:
+    """Fused rows (R, nz*Cin) -> (R, nz*cp) with channels Cin .. cp - 1 zero,
+    starting on 16 bytes: the rows themselves when they already are (Cin ==
+    cp, aligned), else one copy (conv_input's Cin = 5 at pitch 8)."""
+    rows, cin = feats.shape[0], feats.shape[1] // nz
+    if cin == cp and feats.data_ptr() % 16 == 0:
+        return feats
+    out = feats.new_zeros(rows, nz, cp)
+    out[:, :, :cin] = feats.view(rows, nz, cin)
+    return out.view(rows, nz * cp)
+
+
 def _winfuse_cuda(feats, nbr, found, weights, nz):
     global launches
     cin, cout = weights.shape[1], weights.shape[2]
@@ -136,12 +177,19 @@ def _winfuse_cuda(feats, nbr, found, weights, nz):
         raise ValueError('winfuse kernel: inputs on different devices')
     # one source row per tap, -1 where the tap is not taken
     src = torch.where(found, nbr, -1).contiguous()
-    w = weights.to(feats.dtype).contiguous()
     out = torch.empty(v, nz * cout, dtype=feats.dtype, device=feats.device)
-    err = cuda_lib.kernel('winfuse')(
-        feats.data_ptr(), src.data_ptr(), w.data_ptr(), out.data_ptr(), v,
-        nz, cin, cout, int(feats.dtype == torch.bfloat16),
-        torch.cuda.current_stream(feats.device).cuda_stream)
+    stream = torch.cuda.current_stream(feats.device).cuda_stream
+    if feats.dtype == torch.bfloat16:
+        cp = channel_pitch(cin)
+        rows, w = pitch_rows(feats, nz, cp), tap_weights(weights, cp)
+        err = cuda_lib.kernel('winfuse', 'sf_winfuse_bf16')(
+            rows.data_ptr(), src.data_ptr(), w.data_ptr(), out.data_ptr(), v,
+            nz, cp, cout, stream)
+    else:
+        w = weights.float().contiguous()
+        err = cuda_lib.kernel('winfuse', 'sf_winfuse_fp32')(
+            feats.data_ptr(), src.data_ptr(), w.data_ptr(), out.data_ptr(), v,
+            nz, cin, cout, stream)
     cuda_lib.check('winfuse', err)
     launches += 1
     return out
