@@ -10,7 +10,8 @@ Run from the repository root on a machine with an NVIDIA Hopper card and
 the CUDA toolkit.  Phases, each printing one JSON line:
 
   1. device      the card, and nvidia-smi's name and power limit
-  2. build       nvcc of every csrc/*.cu, all at once, with its time
+  2. build       nvcc of every csrc/*.cu (and the pool's loads-only
+                 variant), all at once, with its time
   3. bin_sum     kernel vs plain version at flagship shapes (one 80k-point
                  cloud, 1600^2 pillar grid, pillar epilogue, bf16 out,
                  presorted and unsorted; raw fp32 sums too; a hot trash bin
@@ -19,9 +20,17 @@ the CUDA toolkit.  Phases, each printing one JSON line:
                  index_add_ into a grid zeroed in the same call; the 5
                  clouds of a request in one launch (pillarize_batch) against
                  the per-cloud loop and torch.stack
-  4. patch_pool  kernel vs plain version at flagship shapes (3 frames x 6
+  4. patch_pool  K2 vs plain version at flagship shapes (3 frames x 6
                  cameras x 48 depth bins x 28 x 60 x 64 from the synthetic
-                 calibration) and a forced-overflow case
+                 calibration) in bf16 and in fp32 rows, fp32 rows on bf16
+                 rounding ties, one cell a group and one cell a row (exact
+                 for tie rows), a ragged width and a forced overflow, drops
+                 equal in every case; its time through the wrapper and
+                 alone, in bf16 and fp32, against its bounds and the cast it
+                 saves; the row-atomic design it replaced with and without
+                 its atomics, and its own loads alone; its reductions
+                 (runs) counted from the coords, its ptxas report; the
+                 lift's depth x feature product and permute
   5. winfuse     K3 vs plain version at flagship geometry (the 5 clouds of
                  one request voxelized into columns: conv_input 5->16 and
                  stage 1 16->16 at nz 41, stage 2 32->32 at nz 21 behind the
@@ -32,28 +41,32 @@ the CUDA toolkit.  Phases, each printing one JSON line:
   6. tiny        a tiny camera+LiDAR forward on the card (kernels) vs the
                  same weights on the CPU (plain versions)
   7. tiny_spconv the same on the spconv8x backbone ('winfuse')
-  8. forward     the flagship forward (bench.py's full_cfg: 6 cameras at
+  8. tiny_bf16   the bf16 forward of both tiny configurations on the card
+                 vs the CPU's fp32 forward, at a bar derived from the CPU's
+                 own bf16 forward
+  9. forward     the flagship forward (bench.py's full_cfg: 6 cameras at
                  224x480 with EfficientNet-B4, 5 clouds of 80k points on the
                  pillar8x backbone, 200x200 BEV, variable-step GRU-ODE,
                  3 past frames -> 4 futures) in bf16, answering --requests
                  requests with kernel launch counts read around them
-  9. forward_spconv  the same on the spconv8x backbone (full_cfg with
+ 10. forward_spconv  the same on the spconv8x backbone (full_cfg with
                  STREAMINGFLOW_BENCH_BACKBONE=spconv8x, ZFORM=winfuse)
- 10. bin_sum_grouped  the grouped bin-sum kernel vs the plain version and vs
+ 11. bin_sum_grouped  the grouped bin-sum kernel vs the plain version and vs
                  bin_sum at the same cloud (presorted and unsorted, bf16 and
                  raw fp32, k_tiles 4 / 8 / 16, alone and through the
                  wrapper; the hot trash bin), then the experiment tool
                  (tools/exp_bin_variants.py of the port: 5 bench-like clouds)
                  with the kernel's launches read around it
- 11. patch_pool_bwd  the pool's gradient on the card (backward kernel) vs the
+ 12. patch_pool_bwd  the pool's gradient on the card (backward kernel) vs the
                  plain version's autograd gradient at flagship shapes and in
                  the forced-overflow case
- 12. train_tiny  one tiny camera+LiDAR training step on the card (kernels)
+ 13. train_tiny  one tiny camera+LiDAR training step on the card (kernels)
                  vs the same step on the CPU (plain versions), both in float64
- 13. train       --train-steps flagship training steps (fp32 parameters,
+ 14. train       --train-steps flagship training steps (fp32 parameters,
                  batch 1, MODEL.REMAT as configured) after one warm-up, with
-                 the kernel launch counts read around each step
- 14. kernels     every kernel of the port with its launches, error and times
+                 the kernel launch counts read around each step (K2 on the
+                 fp32 rows, uncast)
+ 15. kernels     every kernel of the port with its launches, error and times
 
 The last line is {"ok": true, "device": {...}}.  Any failed phase raises, so
 the script exits non-zero with no result; so does a machine without CUDA,
@@ -398,65 +411,241 @@ def flagship_pool_inputs(cfg, dev, gen):
     return x, coords, kept, nx, ny
 
 
-def phase_patch_pool(cfg, dev, results):
-    """K2 at the flagship frame stack, and one forced overflow."""
+def tie_rows(shape, dev, gen):
+    """fp32 rows that sit exactly on bf16 rounding ties: +-(1 + m 2^-8) 2^e
+    with m odd, halfway between two bf16 neighbours, so a rounding other
+    than to nearest even shows."""
     import torch
+    m = torch.randint(0, 128, shape, device=dev, generator=gen) * 2 + 1
+    e = torch.randint(-3, 4, shape, device=dev, generator=gen)
+    sign = torch.randint(0, 2, shape, device=dev, generator=gen) * 2 - 1
+    return sign * (1 + m * 2.0 ** -8) * torch.exp2(e.float())
+
+
+def collision_coords(shape, nx, ny, one_cell):
+    """Coords, in a 16 x 8 corner of each group's own patch (groups tiled
+    over the grid, so no two groups share a cell), that put every row of a
+    group in one cell (``one_cell``: the longest runs) or every row in a
+    cell of its own (no run longer than a row).  All rows fit."""
+    import torch
+    f, n, d, fh, fw = shape
+    wb = -(-fw // 4)
+    per_row = nx // 16
+    if n * d * wb > per_row * (ny // 8) or fh > 32:
+        raise ValueError('collision_coords: the groups do not fit the grid')
+    g = torch.arange(n * d * wb).view(1, n, d, 1, wb, 1)
+    gx, gy = g % per_row * 16, g // per_row * 8
+    h = torch.arange(fh).view(1, 1, 1, fh, 1, 1)
+    q = torch.arange(4).view(1, 1, 1, 1, 1, 4)
+    if one_cell:
+        cx, cy = gx + 0 * h * q, gy + 0 * h * q
+    else:
+        cx, cy = gx + h % 16, gy + h // 16 * 4 + q
+    c = torch.stack(torch.broadcast_tensors(cx, cy), -1).expand(
+        f, n, d, fh, wb, 4, 2).reshape(f, n, d, fh, wb * 4, 2)
+    return c[..., :fw, :].contiguous().int()
+
+
+def pool_runs(coords, kept, nx, ny):
+    """Runs of the pool kernel on these inputs: stretches of summed rows of
+    one image column of a group, down h, that share a cell.  Each run is
+    one add of 64 fp32 sums (16 float4 reductions) into the grid."""
+    import torch
+    from streamingflow_tpu_torch.ops import patch_pool as PP
+    fits = PP.fits_mask(coords, kept, nx, ny)[1]
+    cell = coords[..., 0] * ny + coords[..., 1]
+    f, n, d, fh, fw = kept.shape
+    column = torch.arange(f * n * d * fw, device=cell.device).view(
+        f, n, d, 1, fw).expand(f, n, d, fh, fw)
+    # (f, n, d, w, h): each column's rows in the order the kernel walks them
+    col = column.permute(0, 1, 2, 4, 3)[fits.permute(0, 1, 2, 4, 3)]
+    cel = cell.permute(0, 1, 2, 4, 3)[fits.permute(0, 1, 2, 4, 3)]
+    if col.numel() == 0:
+        return 0
+    new = torch.ones_like(col, dtype=torch.bool)
+    new[1:] = (col[1:] != col[:-1]) | (cel[1:] != cel[:-1])
+    return int(new.sum())
+
+
+def phase_patch_pool(cfg, dev, results):
+    """K2's forward at the flagship frame stack in bf16 and in fp32 rows,
+    rows on bf16 ties, the one-cell and all-distinct collision cases, a
+    ragged width and one forced overflow, each against the plain version;
+    its times against its bounds, the cast it saves, an ablation of the
+    row-atomic design it replaced, its reductions and registers, and the
+    lift's product and permute that make its rows."""
+    import torch
+    from streamingflow_tpu_torch.ops import cuda_lib
     from streamingflow_tpu_torch.ops import patch_pool as PP
     gen = torch.Generator(device=dev).manual_seed(0)
     x, coords, kept, nx, ny = flagship_pool_inputs(cfg, dev, gen)
-    got, drops = PP.patch_pool_frames(x, coords, kept, nx, ny)
-    want, want_drops = PP.patch_pool_frames_plain(x, coords, kept, nx, ny)
-    torch.cuda.synchronize()
-    if not torch.equal(drops.cpu(), want_drops.cpu()):
-        raise AssertionError(f'patch_pool drops {drops.tolist()} != plain '
-                             f'{want_drops.tolist()}')
-    # fp32 sums of the same bf16 rows, atomics in a run-to-run order: equal
-    # up to fp32 reassociation over up to a few hundred rows a cell
+    x32 = torch.randn(x.shape, device=dev, generator=gen)
+    # fp32 sums of the same bf16 rows, reductions in a run-to-run order:
+    # equal up to fp32 reassociation over up to a few hundred rows a cell
     tol = dict(rtol=1e-4, atol=1e-4)
-    check_close('patch_pool', got, want, **tol)
-    err = max_err(got, want)
+    cases = {}
 
+    def check(name, x, coords, kept, exact=False, want_drops=None):
+        got, drops = PP.patch_pool_frames(x, coords, kept, nx, ny)
+        want, plain_drops = PP.patch_pool_frames_plain(x, coords, kept, nx,
+                                                       ny)
+        torch.cuda.synchronize()
+        if not torch.equal(drops.cpu(), plain_drops.cpu()):
+            raise AssertionError(f'patch_pool {name}: drops {drops.tolist()}'
+                                 f' != plain {plain_drops.tolist()}')
+        if want_drops is not None and not want_drops(drops):
+            raise AssertionError(f'patch_pool {name}: drops {drops.tolist()}')
+        if exact and not torch.equal(got, want):
+            raise AssertionError(f'patch_pool {name}: one row a cell must '
+                                 f'give the plain sums exactly (max abs '
+                                 f'{max_err(got, want)[0]:.3g})')
+        check_close(f'patch_pool {name}', got, want, **tol)
+        cases[name] = dict(dtype=str(x.dtype).split('.')[-1],
+                           shape=list(x.shape), drops=drops.tolist(),
+                           max_abs_err=max_err(got, want)[0],
+                           runs=pool_runs(coords, kept, nx, ny))
+
+    check('flagship_bf16', x, coords, kept,
+          want_drops=lambda d: int(d.sum()) == 0)
+    check('flagship_fp32', x32, coords, kept,
+          want_drops=lambda d: int(d.sum()) == 0)
+    check('flagship_ties_fp32', tie_rows(x.shape, dev, gen), coords, kept)
+    # the collision cases: 3 frames x 3 cameras x 4 depth bins of 28 x 60
+    # rows, 180 groups a frame tiled over the 200 x 200 grid
+    cshape = (3, 3, 4, 28, 60)
+    ckept = torch.ones(cshape, dtype=torch.bool, device=dev)
+    for one_cell in (True, False):
+        cc = collision_coords(cshape, nx, ny, one_cell).to(dev)
+        name = 'one_cell' if one_cell else 'all_distinct'
+        check(f'{name}_bf16', torch.randn(*cshape, 64, device=dev,
+                                          generator=gen).bfloat16(),
+              cc, ckept, want_drops=lambda d: int(d.sum()) == 0)
+        # ties in fp32: with one row a cell the sums are the rounded rows
+        check(f'{name}_ties_fp32', tie_rows((*cshape, 64), dev, gen), cc,
+              ckept, exact=not one_cell,
+              want_drops=lambda d: int(d.sum()) == 0)
+    # a ragged width (7) and fH * 4 < 128, a fifth of the rows not kept
+    rshape = (2, 2, 3, 20, 7)
+    rc = collision_coords(rshape, nx, ny, False).to(dev)
+    rk = torch.rand(rshape, device=dev, generator=gen) > 0.2
+    check('ragged_fw7_fp32', torch.randn(*rshape, 64, device=dev,
+                                         generator=gen), rc, rk)
     # forced overflow: cells scattered over the grid within each group
     ox = torch.randn(2, 2, 3, 28, 8, 64, device=dev, generator=gen,
                      dtype=torch.bfloat16)
     oc = torch.randint(0, nx, (2, 2, 3, 28, 8, 2), device=dev,
                        generator=gen, dtype=torch.int32)
     ok = torch.rand(2, 2, 3, 28, 8, device=dev, generator=gen) > 0.2
-    o_got, o_drops = PP.patch_pool_frames(ox, oc, ok, nx, ny)
-    o_want, o_want_drops = PP.patch_pool_frames_plain(ox, oc, ok, nx, ny)
-    torch.cuda.synchronize()
-    if not torch.equal(o_drops.cpu(), o_want_drops.cpu()) or \
-            int(o_drops.min()) <= 0:
-        raise AssertionError(f'patch_pool overflow drops {o_drops.tolist()}'
-                             f' vs plain {o_want_drops.tolist()}')
-    check_close('patch_pool overflow', o_got, o_want, **tol)
+    check('overflow', ox, oc, ok, want_drops=lambda d: int(d.min()) > 0)
 
+    # times at the flagship stack: through the wrapper (zeroed grid
+    # included), and alone on prepared inputs
     fits = PP.fits_mask(coords, kept, nx, ny)[1]
-    cell = (torch.arange(x.shape[0], device=dev).view(-1, 1, 1, 1, 1)
+    n_fit = int(fits.sum())
+    frames = x.shape[0]
+    cell = (torch.arange(frames, device=dev).view(-1, 1, 1, 1, 1)
             * (nx * ny) + coords[..., 0] * ny + coords[..., 1])[fits].long()
     rows = x[fits].float()
-    grid = torch.zeros(x.shape[0] * nx * ny, 64, device=dev)
+    grid = torch.zeros(frames * nx * ny, 64, device=dev)
+    out = torch.zeros(frames, nx, ny, 64, device=dev)
+    drops = torch.zeros(frames, dtype=torch.int32, device=dev)
     ms = cuda_ms(lambda: PP.patch_pool_frames(x, coords, kept, nx, ny))
+    fp32_ms = cuda_ms(lambda: PP.patch_pool_frames(x32, coords, kept, nx,
+                                                   ny))
+    cast_ms = cuda_ms(lambda: PP.patch_pool_frames(x32.bfloat16(), coords,
+                                                   kept, nx, ny))
+    alone = {}
+    for name, rows_in, defines in (
+            ('bf16', x, ()), ('fp32', x32, ()),
+            ('bf16_loads_only', x, ('PATCH_POOL_LOADS_ONLY=1',)),
+            ('fp32_loads_only', x32, ('PATCH_POOL_LOADS_ONLY=1',))):
+        alone[name] = cuda_ms(lambda: PP.launch(rows_in, coords, kept, out,
+                                                drops, nx, ny, defines))
+    # the row-atomic design this kernel replaced, with its atomics and with
+    # its loads alone (sums kept in registers, one store a block)
+    f_, n_, d_, fh_, fw_ = kept.shape
+    groups = f_ * n_ * d_ * -(-fw_ // 4)
+    sink = torch.empty(groups, 64, device=dev)
+    old = cuda_lib.kernel('patch_pool_ablation', 'sf_patch_pool_row_atomics')
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def row_atomic(atomics, rows_in=x):
+        cuda_lib.check('patch_pool_row_atomics', old(
+            rows_in.data_ptr(), coords.data_ptr(), kept.data_ptr(),
+            out.data_ptr(), drops.data_ptr(), sink.data_ptr(), f_, n_, d_,
+            fh_, fw_, nx, ny, atomics, stream))
+    out.zero_()
+    drops.zero_()
+    row_atomic(1)
+    torch.cuda.synchronize()
+    check_close('patch_pool row-atomic design', out,
+                PP.patch_pool_frames_plain(x, coords, kept, nx, ny)[0], **tol)
+    row_atomic_ms = cuda_ms(lambda: row_atomic(1))
+    row_atomic_loads_ms = cuda_ms(lambda: row_atomic(0))
+    # what the fp32 rows cost before: the wrapper's cast, then the
+    # row-atomic kernel on a zeroed grid
+    cast_row_atomic_ms = cuda_ms(lambda: (
+        out.zero_(), row_atomic(1, x32.to(torch.bfloat16))))
     plain_ms = cuda_ms(
         lambda: PP.patch_pool_frames_plain(x, coords, kept, nx, ny))
     library_ms = cuda_ms(lambda: grid.index_add_(0, cell, rows))
-    # the features of the rows that are summed, every row's coords and
-    # mask, the grid and the counts
-    n_fit = int(fits.sum())
-    n_bytes = (n_fit * 64 * 2 + coords.numel() * 4 + kept.numel()
-               + got.numel() * 4 + drops.numel() * 4)
-    flops = n_fit * 64
-    bound_ms = max(n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
+
+    def bound(row_bytes):
+        """The features of the rows that are summed, every row's coords and
+        mask, the grid and the counts; one add a summed value."""
+        n_bytes = (n_fit * 64 * row_bytes + coords.numel() * 4
+                   + kept.numel() + out.numel() * 4 + drops.numel() * 4)
+        flops = n_fit * 64
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+        return max(t_bytes, t_ops) * 1e3, n_bytes, (
+            'bytes' if t_bytes >= t_ops else 'operations')
+    bound_ms, n_bytes, bound_by = bound(2)
+    fp32_bound_ms, fp32_bytes, _ = bound(4)
+    runs = cases['flagship_bf16']['runs']
+
+    # the lift's depth x feature product and its permute, which make K2's
+    # rows (models/streamingflow.py), at the flagship shapes
+    f, n, d, fh, fw, c = x.shape
+    lift = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        prob = torch.rand(f * n, d, fh, fw, device=dev, generator=gen
+                          ).to(dtype)
+        feat = torch.randn(f * n, c, fh, fw, device=dev, generator=gen
+                           ).to(dtype)
+        prod = prob[:, :, None] * feat[:, None]
+        key = str(dtype).split('.')[-1]
+        lift[key] = dict(
+            product_ms=cuda_ms(lambda: prob[:, :, None] * feat[:, None]),
+            permute_ms=cuda_ms(lambda: prod.permute(0, 1, 3, 4, 2)
+                               .contiguous()),
+            both_ms=cuda_ms(lambda: (prob[:, :, None] * feat[:, None])
+                            .permute(0, 1, 3, 4, 2).contiguous()),
+            tensor_bytes=prod.numel() * prod.element_size())
+        del prod
+
     results['patch_pool'] = dict(
-        max_abs_err=err[0], ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-        bound_ms=bound_ms, bound_by='bytes')
+        max_abs_err=cases['flagship_bf16']['max_abs_err'], ms=ms,
+        plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+        bound_by=bound_by, fp32_ms=fp32_ms, fp32_bound_ms=fp32_bound_ms)
     emit({'phase': 'patch_pool', 'x_shape': list(x.shape),
-          'kept_rows': int(kept.sum()), 'drops': drops.tolist(),
-          'max_abs_err': err[0], 'max_rel_err': err[1], 'tolerance': tol,
-          'overflow_drops': o_drops.tolist(), 'kernel_ms': ms,
+          'kept_rows': int(kept.sum()), 'summed_rows': n_fit,
+          'tolerance': tol, 'cases': cases,
+          'kernel_ms': {'bf16': ms, 'fp32': fp32_ms},
+          'kernel_alone_ms': alone,
+          'fp32_cast_then_bf16_kernel_ms': cast_ms,
+          'fp32_cast_then_row_atomic_kernel_ms': cast_row_atomic_ms,
+          'ablation_row_atomic_design_ms': {
+              'loads_and_atomics': row_atomic_ms,
+              'loads_only': row_atomic_loads_ms},
+          'reductions': {
+              'runs': runs, 'float4': runs * 16,
+              'row_atomic_design_scalar': n_fit * 64},
+          'ptxas': _ptxas_report(cuda_lib.BUILD_LOG.get('patch_pool', '')),
           'twin_ms': plain_ms, 'library_ms': library_ms,
           'library_call': 'index_add_ of the fitting rows into the grid',
-          'bound_us': bound_ms * 1e3, 'bytes': n_bytes})
+          'bound_us': bound_ms * 1e3, 'bytes': n_bytes,
+          'fp32_bound_us': fp32_bound_ms * 1e3, 'fp32_bytes': fp32_bytes,
+          'lift_product_permute': lift})
 
 
 def phase_patch_pool_bwd(cfg, dev, results):
@@ -655,8 +844,8 @@ def k3_inputs(dev):
 
 
 def _ptxas_report(log):
-    """Registers, spills and stack of each kernel in an nvcc -Xptxas -v
-    log."""
+    """Registers, shared memory, spills and stack of each kernel in an nvcc
+    -Xptxas -v log."""
     import re
     out, name = [], None
     for line in log.splitlines():
@@ -673,6 +862,8 @@ def _ptxas_report(log):
         m = re.search(r'Used (\d+) registers', line)
         if m and out and out[-1]['kernel'] == name:
             out[-1]['registers'] = int(m.group(1))
+            m = re.search(r'(\d+) bytes smem', line)
+            out[-1]['smem_bytes'] = int(m.group(1)) if m else 0
     return out
 
 
@@ -750,15 +941,23 @@ def phase_winfuse(dev, results):
           'library_call': 'none: no one call computes this function'})
 
 
-def _tiny_spconv_config():
-    """tiny_config on the spconv8x backbone, with column caps and a window
-    plan sized to it (tiny_config keeps the flagship's 65536 slots)."""
+def _tiny_lidar_config():
+    """tiny_config with LiDAR on (pillar8x), 64 camera channels (K2's width)
+    and the patch pool."""
     from streamingflow_tpu_torch.data import tiny_config
     cfg = tiny_config()
     cfg.MODEL.MODALITY.USE_LIDAR = True
     cfg.MODEL.ENCODER.OUT_CHANNELS = 64
     cfg.MODEL.BEV_POOL_BACKEND = 'pallas_patch'
     cfg.PROBABILISTIC.ENABLED = False
+    return cfg
+
+
+def _tiny_spconv_config():
+    """The tiny LiDAR configuration on the spconv8x backbone, with column
+    caps and a window plan sized to it (tiny_config keeps the flagship's
+    65536 slots)."""
+    cfg = _tiny_lidar_config()
     cfg.MODEL.LIDAR.BACKBONE = 'spconv8x'
     se = cfg.MODEL.SPARSE_ENCODER
     se.ENGINE = 'column'
@@ -809,14 +1008,10 @@ def phase_tiny(dev):
     same weights and inputs, fp32, deterministic."""
     import torch
     import streamingflow_tpu_torch as P
-    from streamingflow_tpu_torch.data import make_batch, tiny_config
+    from streamingflow_tpu_torch.data import make_batch
     from streamingflow_tpu_torch.ops import bin_sum as B
     from streamingflow_tpu_torch.ops import patch_pool as PP
-    cfg = tiny_config()
-    cfg.MODEL.MODALITY.USE_LIDAR = True
-    cfg.MODEL.ENCODER.OUT_CHANNELS = 64
-    cfg.MODEL.BEV_POOL_BACKEND = 'pallas_patch'
-    cfg.PROBABILISTIC.ENABLED = False
+    cfg = _tiny_lidar_config()
     cpu_model = P.build_model(cfg, device='cpu', seed=0)
     gpu_model = P.build_model(cfg, device=dev)
     gpu_model.load_state_dict(cpu_model.state_dict())
@@ -843,6 +1038,70 @@ def phase_tiny(dev):
           'tolerance': dict(rtol=5e-3, atol=5e-3)})
 
 
+def phase_tiny_bf16(dev):
+    """The bf16 forward on the card against the CPU port's fp32 forward,
+    same weights and inputs, for the tiny pillar8x (K1, K2) and the tiny
+    spconv8x (K2, K3 in bf16) configurations.  The bar is derived, not
+    picked: per output, the card's error may be at most twice the CPU
+    port's own bf16 forward's error against the same fp32 forward, or 4
+    bf16 steps (4 x 2^-8) of the output's largest value, whichever is
+    larger (the bf16 forward rounds in other places on the two devices)."""
+    import torch
+    import streamingflow_tpu_torch as P
+    from streamingflow_tpu_torch.data import make_batch
+    from streamingflow_tpu_torch.ops import bin_sum as B
+    from streamingflow_tpu_torch.ops import patch_pool as PP
+    from streamingflow_tpu_torch.ops import winfuse as WF
+    bf16 = torch.bfloat16
+    line = {'phase': 'tiny_bf16'}
+    for name, make_cfg, n_points, kernels in (
+            ('tiny', _tiny_lidar_config, 4096, ('bin_sum', 'patch_pool')),
+            ('tiny_spconv', _tiny_spconv_config, 512,
+             ('patch_pool', 'winfuse'))):
+        cfg, cfg16 = make_cfg(), make_cfg()
+        # the serving forward's mixed precision: bf16 parameters, images and
+        # LiDAR branch (flagship_config)
+        cfg16.MODEL.SPARSE_ENCODER.COMPUTE_DTYPE = 'bfloat16'
+        ref_model = P.build_model(cfg, device='cpu', seed=0)
+        state = ref_model.state_dict()
+        cpu16 = P.build_model(cfg16, device='cpu', dtype=bf16)
+        cpu16.load_state_dict(state)
+        gpu16 = P.build_model(cfg16, device=dev, dtype=bf16)
+        gpu16.load_state_dict(state)
+        batch = make_batch(cfg, 1, seed=1, n_points=n_points)
+        counters = {'bin_sum': B, 'patch_pool': PP, 'winfuse': WF}
+        before = {k: counters[k].launches for k in kernels}
+        with torch.no_grad():
+            ref = ref_model(**P.batch_to_model_args(batch, cfg, device='cpu'))
+            low = cpu16(**P.batch_to_model_args(batch, cfg16, device='cpu',
+                                                image_dtype=bf16))
+            got = gpu16(**P.batch_to_model_args(batch, cfg16, device=dev,
+                                                image_dtype=bf16))
+        torch.cuda.synchronize()
+        launched = {k: counters[k].launches - before[k] for k in kernels}
+        if not all(launched.values()):
+            raise AssertionError(f'tiny_bf16 {name}: launches {launched}')
+        outputs = {}
+        for k, w in ref.items():
+            if w is None:
+                continue
+            g = got[k].cpu()
+            if g.dtype != bf16 or not torch.isfinite(g).all():
+                raise AssertionError(f'tiny_bf16 {name} {k}: {g.dtype}, '
+                                     f'finite {bool(torch.isfinite(g).all())}')
+            card = float((g.float() - w).abs().max())
+            cpu = float((low[k].float() - w).abs().max())
+            bar = max(2 * cpu, 4 * 2 ** -8 * float(w.abs().max()))
+            if card > bar:
+                raise AssertionError(f'tiny_bf16 {name} {k}: card error '
+                                     f'{card:.3g} > bar {bar:.3g} (CPU bf16 '
+                                     f'error {cpu:.3g})')
+            outputs[k] = {'card_err': card, 'cpu_bf16_err': cpu, 'bar': bar}
+        line[name] = {'launches': launched, 'outputs': outputs}
+    emit({**line, 'bar': 'max(2 x the CPU bf16 error, 4 x 2^-8 x max|fp32 '
+                         'output|) against the CPU fp32 forward'})
+
+
 def phase_forward(cfg, dev, n_requests, card, n_points=80000):
     """The flagship forward on cfg's LiDAR backbone, every kernel count set
     to 0 before the requests and read after them."""
@@ -860,13 +1119,13 @@ def phase_forward(cfg, dev, n_requests, card, n_points=80000):
     n = len(cfg.IMAGE.NAMES)
     d, fh, fw = model.frustum.shape[:3]
     counters = {'bin_sum': B, 'patch_pool': PP, 'winfuse': WF}
-    # pillar8x: one bin-sum for all clouds; spconv8x: one K3 launch over
-    # the stacked clouds per submanifold conv (conv_input and the two convs
-    # of each block of stages 1 and 2)
+    # one K2 launch for all frames; pillar8x: one bin-sum for all clouds;
+    # spconv8x: one K3 launch over the stacked clouds per submanifold conv
+    # (conv_input and the two convs of each block of stages 1 and 2)
     se = cfg.MODEL.SPARSE_ENCODER
     blocks = [len(c) - 1 for c in se.ENCODER_CHANNELS[:2]]
-    expect = ({'bin_sum': 0, 'winfuse': 1 + 2 * sum(blocks)} if spconv
-              else {'bin_sum': 1, 'winfuse': 0})
+    expect = ({'bin_sum': 0, 'patch_pool': 1, 'winfuse': 1 + 2 * sum(blocks)}
+              if spconv else {'bin_sum': 1, 'patch_pool': 1, 'winfuse': 0})
 
     def request(seed):
         batch = make_batch(cfg, 1, seed=seed, n_points=n_points)
@@ -909,10 +1168,9 @@ def phase_forward(cfg, dev, n_requests, card, n_points=80000):
                 raise AssertionError(f'{k}: values not finite')
     launches = {k: m.launches for k, m in counters.items()}
     for i, got in enumerate(per_request):
-        if any(got[k] != v for k, v in expect.items()) or \
-                got['patch_pool'] < 1:
+        if got != expect:
             raise AssertionError(f'request {i}: launches {got}, want '
-                                 f'{expect} and patch_pool >= 1')
+                                 f'{expect}')
     line = {'phase': 'forward_spconv' if spconv else 'forward',
             'backbone': cfg.MODEL.LIDAR.BACKBONE, 'requests': n_requests,
             'latency_s': lat, 'median_latency_s': statistics.median(lat),
@@ -924,16 +1182,6 @@ def phase_forward(cfg, dev, n_requests, card, n_points=80000):
     emit({**line, 'peak_mem_gib': torch.cuda.max_memory_allocated() / 2 ** 30,
           'card': card})
     return launches
-
-
-def _tiny_train_config():
-    from streamingflow_tpu_torch.data import tiny_config
-    cfg = tiny_config()
-    cfg.MODEL.MODALITY.USE_LIDAR = True
-    cfg.MODEL.ENCODER.OUT_CHANNELS = 64
-    cfg.MODEL.BEV_POOL_BACKEND = 'pallas_patch'
-    cfg.PROBABILISTIC.ENABLED = False
-    return cfg
 
 
 def phase_train_tiny(dev):
@@ -959,7 +1207,7 @@ def phase_train_tiny(dev):
     tol = {'losses': 1e-5, 'grad_norm': 5e-3, 'grad_leaf': 0.1,
            'grad_cosine': 0.999, 'bn_buffers': 1e-4,
            'parameters': '2 * lr; 1e-3 * lr where |g| >= 0.1 of the leaf'}
-    cfg = _tiny_train_config()
+    cfg = _tiny_lidar_config()
     cfg.MODEL.SPARSE_ENCODER.COMPUTE_DTYPE = 'float64'
     cpu = P.build_trainer(cfg, device='cpu', seed=0)
     gpu = P.build_trainer(cfg, device=dev)
@@ -1056,11 +1304,14 @@ def phase_train(cfg, dev, n_steps, card, n_points=80000):
     from streamingflow_tpu_torch.ops import bin_sum as B
     from streamingflow_tpu_torch.ops import patch_pool as PP
     trainer = P.build_trainer(cfg, device=dev, seed=0)
-    # one bin-sum for all the step's clouds
-    expect = {'bin_sum': 1, 'patch_pool': 1, 'patch_pool_bwd': 1}
+    # one bin-sum for all the step's clouds, one pool for all its frames,
+    # on the fp32 rows as they are (no cast before the launch)
+    expect = {'bin_sum': 1, 'patch_pool': 1, 'patch_pool_fp32_rows': 1,
+              'patch_pool_bwd': 1}
 
     def counts():
         return {'bin_sum': B.launches, 'patch_pool': PP.launches,
+                'patch_pool_fp32_rows': PP.launches_fp32,
                 'patch_pool_bwd': PP.launches_bwd}
 
     def step(seed):
@@ -1076,7 +1327,7 @@ def phase_train(cfg, dev, n_steps, card, n_points=80000):
     start = {k: v.clone() for k, v in state.items()}
     step(100)                                     # warm-up, not counted
     torch.cuda.reset_peak_memory_stats()
-    B.launches = PP.launches = PP.launches_bwd = 0
+    B.launches = PP.launches = PP.launches_fp32 = PP.launches_bwd = 0
     times, losses, per_step, drops = [], [], [], []
     for seed in range(1, n_steps + 1):
         before = counts()
@@ -1154,9 +1405,17 @@ def main(argv=None):
           'count': torch.cuda.device_count(), 'torch': torch.__version__,
           'cuda': torch.version.cuda})
 
+    from concurrent.futures import ThreadPoolExecutor
     from streamingflow_tpu_torch.ops import cuda_lib
     t0 = time.perf_counter()
-    cuda_lib.build()
+    # every source and the pool's loads-only variant (phase patch_pool), all
+    # nvcc processes started together
+    with ThreadPoolExecutor(2) as pool:
+        jobs = [pool.submit(cuda_lib.build),
+                pool.submit(cuda_lib.build, ['patch_pool'],
+                            ('PATCH_POOL_LOADS_ONLY=1',))]
+        for job in jobs:
+            job.result()
     emit({'phase': 'build', 'seconds': time.perf_counter() - t0,
           'ptxas': {k: [ln for ln in v.splitlines() if 'registers' in ln
                         or 'spill' in ln] for k, v in
@@ -1170,6 +1429,7 @@ def main(argv=None):
     phase_winfuse(dev, results)
     phase_tiny(dev)
     phase_tiny_spconv(dev)
+    phase_tiny_bf16(dev)
     launches = phase_forward(cfg, dev, args.requests, smi)
     launches['winfuse'] = phase_forward(
         flagship_config(backbone='spconv8x'), dev, args.requests,

@@ -3,21 +3,37 @@
 // Replaces the TPU kernel
 // streamingflow_tpu/ops/pallas_patch_pool.py::_patch_pool_kernel/_one_group,
 // and holds the pool's backward (_pool_bwd there, plain jnp outside any TPU
-// kernel) as a second kernel.  The function: frustum rows are grouped by (frame, camera,
-// depth bin, 4 image columns), fH * 4 rows a group.  A group's patch origin
-// is its min kept x and its min kept y floored to a multiple of 8, both
-// clamped into the grid; a kept row is added into its BEV cell only if it
-// falls inside the 16 x 24 patch from that origin, and the kept rows that do
-// not fit are counted per frame.  The TPU kernel reached the cells with a
-// one-hot matmul, because the TPU scatters slowly; here each kept row is
-// added straight into its cell with fp32 atomics.
+// kernel) as a second kernel.  The function: frustum rows are grouped by
+// (frame, camera, depth bin, 4 image columns), fH * 4 rows a group.  A
+// group's patch origin is its min kept x and its min kept y floored to a
+// multiple of 8, both clamped into the grid; a kept row is added into its
+// BEV cell only if it falls inside the 16 x 24 patch from that origin, and
+// the kept rows that do not fit are counted per frame.  Each value is
+// rounded to bf16 before the fp32 sum.  The TPU kernel reached the cells
+// with a one-hot matmul, because the TPU scatters slowly; nothing here needs
+// the tensor cores.
 //
-// What bounds it on an H100: bytes.  Per flagship forecast it reads 1.45 M
-// rows x 64 bf16 features (186 MB) plus coords and mask, and writes the
-// 3 x 200 x 200 x 64 fp32 grid.  The design reads x in place, in its
-// (F, N, D, fH, fW, 64) layout: one warp moves a row's 128 bytes in one
-// coalesced load, and nothing is repacked.  Atomic order varies from run to
-// run, so sums agree with a sequential sum up to fp32 reassociation.
+// What bounds the forward on an H100: bytes.  Per flagship forecast it
+// reads 1.38 M kept rows x 64 bf16 features (176 MB) plus coords and mask,
+// and writes the 3 x 200 x 200 x 64 fp32 grid (30.7 MB, which stays in the
+// 50 MB L2).  The design, for that bound:
+//   - one warp a group, no block barrier: the group's coords and mask come
+//     in one burst (a lane takes 4 rows), the patch origin is a warp min,
+//     the drop count one ballot and one atomic a warp, an empty group leaves
+//     at once;
+//   - a quarter of the warp walks one image column down h, a lane holding 8
+//     channels: one warp load covers one h-step of the group, 4 rows of
+//     contiguous memory, with 16-byte loads a lane, several h-steps issued
+//     ahead of their use and marked evict-first so the grid stays in L2;
+//   - a column's rows change cell about every 27 h-steps (rows in memory
+//     order change every 1.25), so a quarter keeps a running fp32 sum of its
+//     run of rows that share a cell and adds it to the grid with two float4
+//     reductions a lane only when the cell changes: ~0.8 M float4
+//     reductions a flagship forecast in place of 88 M scalar atomics;
+//   - fp32 rows are read as they are and rounded to bf16 in registers
+//     (round to nearest even, as a cast), so no cast pass runs before it.
+// Reduction order varies from run to run, so sums agree with a sequential
+// sum up to fp32 reassociation.
 #include <climits>
 #include <cstdint>
 
@@ -26,110 +42,198 @@
 
 namespace {
 
-constexpr int kPatchH = 16;  // x cells per patch
-constexpr int kPatchW = 24;  // y cells per patch
-constexpr int kUBlock = 4;   // image columns per group
-constexpr int kThreads = 128;  // one thread per group row (fH * 4 <= 128)
-constexpr int kWarps = kThreads / 32;
-constexpr int kChan = 64;
+#include "patch_pool_fit.cuh"
 
-// The patch-budget decision for thread r's row of group blockIdx.x.
-struct RowFit {
-  int f;           // frame of the group
-  long long p;     // flat row index into (F, N, D, fH, fW); -1 for a thread
-                   // beyond the group's rows or the image's columns
-  int cell;        // cx * ny + cy if the row is summed, else -1
-  bool dropped;    // kept, but outside the group's patch
-  bool any_kept;   // the group has a kept row (the same in every thread)
+// ---------------------------------------------------------------- forward
+
+constexpr int kPoolWarps = 4;  // groups a block, one warp each
+constexpr int kPoolThreads = kPoolWarps * 32;
+constexpr int kRowsPerLane = kThreads / 32;  // group rows whose coords a
+                                             // lane loads
+
+// A lane's 8 channels of one row: where they sit in the row and how they
+// load.  bf16: channels 8s .. 8s+7, one 16-byte load; fp32: channels
+// 4s .. 4s+3 and 32+4s .. 32+4s+3, two 16-byte loads, each covering 128
+// contiguous bytes across the quarter.  s is the lane's index in its
+// quarter.
+template <typename T> struct Lane;
+
+template <> struct Lane<__nv_bfloat16> {
+  static constexpr int kAhead = 8;  // h-steps loaded before their use
+  struct Vec { uint4 a; };
+  __device__ static int off0(int s) { return 8 * s; }
+  __device__ static int off1(int s) { return 8 * s + 4; }
+  __device__ static Vec load(const __nv_bfloat16* row, int s) {
+    return {__ldcs(reinterpret_cast<const uint4*>(row) + s)};
+  }
+  __device__ static void add(float (&acc)[8], const Vec& v) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v.a);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      acc[2 * i] += f.x;
+      acc[2 * i + 1] += f.y;
+    }
+  }
 };
 
-__device__ RowFit row_fit(const int* __restrict__ coords,
-                          const uint8_t* __restrict__ kept, int N, int D,
-                          int fH, int fW, int WB, int nx, int ny) {
-  __shared__ int s_min[2][kWarps];
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
 
-  int g = blockIdx.x;
+template <> struct Lane<float> {
+  static constexpr int kAhead = 4;
+  struct Vec { float4 a, b; };
+  __device__ static int off0(int s) { return 4 * s; }
+  __device__ static int off1(int s) { return 32 + 4 * s; }
+  __device__ static Vec load(const float* row, int s) {
+    const float4* r = reinterpret_cast<const float4*>(row);
+    return {__ldcs(r + s), __ldcs(r + 8 + s)};
+  }
+  __device__ static void add(float (&acc)[8], const Vec& v) {
+    acc[0] += round_bf16(v.a.x);
+    acc[1] += round_bf16(v.a.y);
+    acc[2] += round_bf16(v.a.z);
+    acc[3] += round_bf16(v.a.w);
+    acc[4] += round_bf16(v.b.x);
+    acc[5] += round_bf16(v.b.y);
+    acc[6] += round_bf16(v.b.z);
+    acc[7] += round_bf16(v.b.w);
+  }
+};
+
+// Adds a run's sums into its cell: two float4 reductions (red.global.add
+// .v4.f32 on sm_90).  Built with PATCH_POOL_LOADS_ONLY, an experiment that
+// times the loads alone, the sums go into a register total instead, stored
+// once at the end of the group.
+__device__ __forceinline__ void flush(float* cell, int o0, int o1,
+                                      float (&acc)[8], float (&total)[8]) {
+#ifdef PATCH_POOL_LOADS_ONLY
+#pragma unroll
+  for (int i = 0; i < 8; ++i) total[i] += acc[i];
+#else
+  atomicAdd(reinterpret_cast<float4*>(cell + o0),
+            make_float4(acc[0], acc[1], acc[2], acc[3]));
+  atomicAdd(reinterpret_cast<float4*>(cell + o1),
+            make_float4(acc[4], acc[5], acc[6], acc[7]));
+#endif
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kPoolThreads)
+patch_pool_kernel(const T* __restrict__ x, const int* __restrict__ coords,
+                  const uint8_t* __restrict__ kept, float* __restrict__ out,
+                  int* __restrict__ drops, int N, int D, int fH, int fW,
+                  int WB, int nx, int ny, long long groups) {
+  __shared__ int s_cell[kPoolWarps][kThreads];  // cell of each group row
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long group = (long long)blockIdx.x * kPoolWarps + warp;
+  if (group >= groups) return;  // warp-uniform
+  long long g = group;
   const int wb = g % WB;
   g /= WB;
   const int d = g % D;
   g /= D;
   const int n = g % N;
   const int f = g / N;
+  // row (h, w) of the group is row (plane * fH + h) * fW + w of x
+  const long long plane = ((long long)f * N + n) * D + d;
 
-  const int r = threadIdx.x;
-  const int lane = r & 31, warp = r >> 5;
-  bool valid = false;
-  int cx = INT_MAX, cy = INT_MAX;
-  long long p = -1;
-  if (r < fH * kUBlock) {
-    const int h = r / kUBlock, w = wb * kUBlock + r % kUBlock;
-    if (w < fW) {
-      p = ((((long long)f * N + n) * D + d) * fH + h) * fW + w;
-      if (kept[p] && coords[2 * p] >= 0) {
-        valid = true;
-        cx = coords[2 * p];
-        cy = coords[2 * p + 1];
-      }
+  // the group's coords and mask in one burst: lane takes rows lane + 32 i,
+  // row r at h = r / 4, column wb * 4 + r % 4
+  int2 c[kRowsPerLane];
+  bool k[kRowsPerLane];
+#pragma unroll
+  for (int i = 0; i < kRowsPerLane; ++i) {
+    const int r = lane + 32 * i, h = r >> 2, w = wb * kUBlock + (r & 3);
+    k[i] = false;
+    c[i] = make_int2(0, 0);
+    if (h < fH && w < fW) {
+      const long long p = (plane * fH + h) * fW + w;
+      k[i] = kept[p];
+      c[i] = reinterpret_cast<const int2*>(coords)[p];
     }
   }
-
-  int mx = cx, my = cy;
+  int mx = INT_MAX, my = INT_MAX;
+#pragma unroll
+  for (int i = 0; i < kRowsPerLane; ++i) {
+    k[i] = k[i] && c[i].x >= 0;
+    if (k[i]) {
+      mx = min(mx, c[i].x);
+      my = min(my, c[i].y);
+    }
+  }
+#pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
     mx = min(mx, __shfl_xor_sync(0xffffffffu, mx, o));
     my = min(my, __shfl_xor_sync(0xffffffffu, my, o));
   }
-  if (lane == 0) {
-    s_min[0][warp] = mx;
-    s_min[1][warp] = my;
-  }
-  __syncthreads();
-  int minx = INT_MAX, miny = INT_MAX;
-  for (int i = 0; i < kWarps; ++i) {
-    minx = min(minx, s_min[0][i]);
-    miny = min(miny, s_min[1][i]);
-  }
+  if (mx == INT_MAX) return;  // no kept row: warp-uniform
 
-  const int x0 = min(max(minx, 0), nx - kPatchH);
-  const int y0 = min(max((miny >> 3) * 8, 0), ny - kPatchW);  // floor
-  const int lx = cx - x0, ly = cy - y0;
-  const bool fits =
-      valid && lx >= 0 && lx < kPatchH && ly >= 0 && ly < kPatchW;
-  return {f, p, fits ? cx * ny + cy : -1, valid && !fits, minx != INT_MAX};
+  const int x0 = min(max(mx, 0), nx - kPatchH);
+  const int y0 = min(max((my >> 3) * 8, 0), ny - kPatchW);  // floor
+  int n_drop = 0;
+#pragma unroll
+  for (int i = 0; i < kRowsPerLane; ++i) {
+    const int lx = c[i].x - x0, ly = c[i].y - y0;
+    const bool fits =
+        k[i] && lx >= 0 && lx < kPatchH && ly >= 0 && ly < kPatchW;
+    s_cell[warp][lane + 32 * i] = fits ? c[i].x * ny + c[i].y : -1;
+    n_drop += __popc(__ballot_sync(0xffffffffu, k[i] && !fits));
+  }
+  if (lane == 0 && n_drop) atomicAdd(&drops[f], n_drop);
+  __syncwarp();
+
+  // quarter q walks column wb * 4 + q down h; lane s of it holds 8 channels
+  using L = Lane<T>;
+  constexpr int kAhead = L::kAhead;
+  const int q = lane >> 3, s = lane & 7;
+  const int o0 = L::off0(s), o1 = L::off1(s);
+  const T* col = x + (plane * fH * fW + wb * kUBlock + q) * kChan;
+  const long long h_stride = (long long)fW * kChan;
+  float* frame = out + (size_t)f * nx * ny * kChan;
+  const int* cells = s_cell[warp] + q;
+
+  float acc[8], total[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc[i] = total[i] = 0.f;
+  int run = -1;  // cell of the running sum, -1 before the first row
+  for (int h0 = 0; h0 < fH; h0 += kAhead) {
+    typename L::Vec v[kAhead];
+    int cell[kAhead];
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      const int h = h0 + u;
+      cell[u] = h < fH ? cells[h * kUBlock] : -1;
+      if (cell[u] >= 0) v[u] = L::load(col + h * h_stride, s);
+    }
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      if (cell[u] < 0) continue;
+      if (cell[u] != run) {
+        if (run >= 0)
+          flush(frame + (size_t)run * kChan, o0, o1, acc, total);
+        run = cell[u];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[i] = 0.f;
+      }
+      L::add(acc, v[u]);
+    }
+  }
+  if (run >= 0) flush(frame + (size_t)run * kChan, o0, o1, acc, total);
+#ifdef PATCH_POOL_LOADS_ONLY
+  if (run >= 0) {
+    float* dst = frame + (size_t)run * kChan;
+    *reinterpret_cast<float4*>(dst + o0) =
+        make_float4(total[0], total[1], total[2], total[3]);
+    *reinterpret_cast<float4*>(dst + o1) =
+        make_float4(total[4], total[5], total[6], total[7]);
+  }
+#endif
 }
 
-__global__ void __launch_bounds__(kThreads)
-patch_pool_kernel(const __nv_bfloat16* __restrict__ x,
-                  const int* __restrict__ coords,
-                  const uint8_t* __restrict__ kept, float* __restrict__ out,
-                  int* __restrict__ drops, int N, int D, int fH, int fW,
-                  int WB, int nx, int ny) {
-  __shared__ int s_cell[kThreads];
-  __shared__ long long s_row[kThreads];
-
-  const RowFit fit = row_fit(coords, kept, N, D, fH, fW, WB, nx, ny);
-  if (!fit.any_kept) return;  // block-uniform
-
-  const int r = threadIdx.x;
-  const int lane = r & 31, warp = r >> 5;
-  const int n_drop = __popc(__ballot_sync(0xffffffffu, fit.dropped));
-  if (lane == 0 && n_drop) atomicAdd(&drops[fit.f], n_drop);
-  s_cell[r] = fit.cell;
-  s_row[r] = fit.p;
-  __syncthreads();
-
-  // one warp per row, two channels per lane
-  float* frame = out + (size_t)fit.f * nx * ny * kChan;
-  const int rows = fH * kUBlock;
-  for (int i = warp; i < rows; i += kWarps) {
-    const int cell = s_cell[i];
-    if (cell < 0) continue;
-    const float2 v = __bfloat1622float2(
-        reinterpret_cast<const __nv_bfloat162*>(x + s_row[i] * kChan)[lane]);
-    float* dst = frame + (size_t)cell * kChan + 2 * lane;
-    atomicAdd(dst, v.x);
-    atomicAdd(dst + 1, v.y);
-  }
-}
+// ---------------------------------------------------------------- backward
 
 __device__ __forceinline__ void store2(float* p, float2 v) {
   *reinterpret_cast<float2*>(p) = v;
@@ -175,20 +279,27 @@ patch_pool_bwd_kernel(const float* __restrict__ dout,
 
 }  // namespace
 
-// x (F, N, D, fH, fW, 64) bf16; coords (F, N, D, fH, fW, 2) int32;
-// kept (F, N, D, fH, fW) bool; out (F, nx, ny, 64) fp32 and drops (F,)
-// int32, both zeroed by the caller.  fH * 4 <= 128.
+// x (F, N, D, fH, fW, 64) bf16 (x_fp32 0) or fp32 (x_fp32 1), 16-byte
+// aligned; coords (F, N, D, fH, fW, 2) int32, 8-byte aligned; kept
+// (F, N, D, fH, fW) bool; out (F, nx, ny, 64) fp32 and drops (F,) int32,
+// both zeroed by the caller.  fH * 4 <= 128.
 extern "C" int sf_patch_pool(const void* x, const int* coords,
                              const uint8_t* kept, float* out, int* drops,
                              int F, int N, int D, int fH, int fW, int nx,
-                             int ny, void* stream) {
+                             int ny, int x_fp32, void* stream) {
   const int WB = (fW + kUBlock - 1) / kUBlock;
   const long long groups = (long long)F * N * D * WB;
   if (groups == 0) return 0;
-  patch_pool_kernel<<<(unsigned)groups, kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), coords, kept, out, drops, N, D,
-      fH, fW, WB, nx, ny);
+  const unsigned blocks = (unsigned)((groups + kPoolWarps - 1) / kPoolWarps);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (x_fp32)
+    patch_pool_kernel<float><<<blocks, kPoolThreads, 0, st>>>(
+        static_cast<const float*>(x), coords, kept, out, drops, N, D, fH, fW,
+        WB, nx, ny, groups);
+  else
+    patch_pool_kernel<__nv_bfloat16><<<blocks, kPoolThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), coords, kept, out, drops, N, D,
+        fH, fW, WB, nx, ny, groups);
   return static_cast<int>(cudaGetLastError());
 }
 

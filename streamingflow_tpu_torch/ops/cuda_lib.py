@@ -37,9 +37,12 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
                          _I, _I, _P]},
     'patch_pool': {
         'sf_patch_pool':
-            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
         'sf_patch_pool_bwd':
             [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
+    'patch_pool_ablation': {
+        'sf_patch_pool_row_atomics':
+            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
     'winfuse': {'sf_winfuse_fp32': [_P, _P, _P, _P, _I, _I, _I, _I, _P],
                 'sf_winfuse_bf16': [_P, _P, _P, _P, _I, _I, _I, _I, _P]},
 }

@@ -9,11 +9,13 @@ that do not are counted per frame.  Features are rounded to bf16 before the
 fp32 sum, as in the JAX package.
 
 On a CUDA tensor :func:`patch_pool_frames` launches the hand-written kernel
-csrc/patch_pool.cu (one block per group, fp32 atomics into the grid, all
-frames in one launch); on a CPU tensor it takes the plain PyTorch version
-:func:`patch_pool_frames_plain`.  There is no fallback from the kernel to
-the plain version.  The kernel takes C = 64 features, the width of the
-main path (the JAX kernel takes only 64 too).
+csrc/patch_pool.cu (one warp a group, a running sum per image column added
+into the grid when its cell changes, all frames in one launch); on a CPU
+tensor it takes the plain PyTorch version :func:`patch_pool_frames_plain`.
+There is no fallback from the kernel to the plain version.  The kernel takes
+C = 64 features, the width of the main path (the JAX kernel takes only 64
+too), as bf16 or fp32 rows: it rounds fp32 values to bf16 as it reads them,
+so neither type is cast before the launch (:func:`kernel_rows`).
 
 :func:`patch_pool_frames` is differentiable in ``x`` (the JAX package's
 custom VJP ``_pool_bwd``): the pool is linear, so a row's gradient is the
@@ -37,9 +39,10 @@ UBLOCK = 4            # image columns per group
 ROWS = 128            # most rows a group may have (fH * UBLOCK)
 KERNEL_CHANNELS = 64
 
-# launches of the forward and of the backward kernel since the last reset
-# (chip_smoke.py reads them)
+# launches of the forward kernel (of them on fp32 rows) and of the backward
+# kernel since the last reset (chip_smoke.py reads them)
 launches = 0
+launches_fp32 = 0
 launches_bwd = 0
 # per-frame drop counts of the latest pool, either path (a device tensor:
 # reading it is the caller's synchronisation, not the pool's)
@@ -195,23 +198,54 @@ def _patch_pool_grad_cuda(dout, coords, kept, nx, ny, dtype):
     return dx.to(dtype)
 
 
-def _patch_pool_cuda(x, coords, kept, nx, ny):
-    global launches
+def kernel_rows(x: torch.Tensor, coords: torch.Tensor,
+                kept: torch.Tensor) -> torch.Tensor:
+    """The rows as the forward kernel takes them, after its argument checks.
+
+    fp32 and bf16 rows pass as they are, without a copy: the kernel rounds
+    fp32 values to bf16 as it reads them.  Rows of another floating type
+    are cast to bf16 here, once (the cast rounds them as the plain version
+    does).  Raises ValueError for what the kernel does not take: a width
+    other than 64, integer rows, more than 128 rows a group, coords or mask
+    of another shape or type, inputs that are not contiguous or not aligned
+    for the kernel's 16-byte row and 8-byte coord loads.  Launches nothing."""
     if x.dim() != 6 or x.shape[-1] != KERNEL_CHANNELS:
         raise ValueError(f'patch_pool kernel takes x (F, N, D, fH, fW, '
                          f'{KERNEL_CHANNELS}), got {tuple(x.shape)}')
-    f, n, d, fh, fw, _ = x.shape
+    if not x.is_floating_point():
+        raise ValueError(f'patch_pool kernel takes floating rows, got '
+                         f'{x.dtype}')
     _check_rows('patch_pool kernel', x.shape[:5], coords, kept, x.device)
-    x = x.to(torch.bfloat16)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        x = x.to(torch.bfloat16, memory_format=torch.contiguous_format)
     if not x.is_contiguous():
         raise ValueError('patch_pool kernel takes contiguous inputs')
-    out = torch.zeros(f, nx, ny, KERNEL_CHANNELS, dtype=torch.float32,
-                      device=x.device)
-    drops = torch.zeros(f, dtype=torch.int32, device=x.device)
-    err = cuda_lib.kernel('patch_pool')(
+    if x.data_ptr() % 16 or coords.data_ptr() % 8:
+        raise ValueError('patch_pool kernel takes rows aligned to 16 bytes '
+                         'and coords aligned to 8')
+    return x
+
+
+def launch(x, coords, kept, out, drops, nx, ny, defines=()):
+    """One forward launch on prepared inputs (:func:`kernel_rows`; ``out``
+    and ``drops`` zeroed), of csrc/patch_pool.cu built with ``defines``.
+    Counts nothing: the wrapper counts its launches."""
+    f, n, d, fh, fw, _ = x.shape
+    err = cuda_lib.kernel('patch_pool', 'sf_patch_pool', tuple(defines))(
         x.data_ptr(), coords.data_ptr(), kept.data_ptr(), out.data_ptr(),
         drops.data_ptr(), f, n, d, fh, fw, nx, ny,
+        int(x.dtype == torch.float32),
         torch.cuda.current_stream(x.device).cuda_stream)
     cuda_lib.check('patch_pool', err)
+
+
+def _patch_pool_cuda(x, coords, kept, nx, ny):
+    global launches, launches_fp32
+    x = kernel_rows(x, coords, kept)
+    out = torch.zeros(x.shape[0], nx, ny, KERNEL_CHANNELS,
+                      dtype=torch.float32, device=x.device)
+    drops = torch.zeros(x.shape[0], dtype=torch.int32, device=x.device)
+    launch(x, coords, kept, out, drops, nx, ny)
     launches += 1
+    launches_fp32 += int(x.dtype == torch.float32)
     return out, drops

@@ -13,6 +13,10 @@ measures, at flagship shapes (``data.flagship_config(backbone=...)``, seed
   - K1 on one 80k-point cloud (pillar epilogue, bf16 out, presorted): the
     wrapper ``bin_sum`` and the kernel alone on prepared inputs (tile bounds
     or offsets and the output made beforehand), CUDA events over 20 calls;
+  - K2, the camera pool, through its wrapper ``patch_pool_frames`` at the
+    flagship frame stack (``chip_smoke.flagship_pool_inputs`` of the
+    checkout holding this tool), on bf16 rows and on fp32 rows (the
+    training step's), CUDA events over 20 calls;
   - the pillar statistics of one request (5 clouds):
     ``PillarBEVEncoder.pillar_features``, CUDA events over 20 calls, with its
     K1 launches;
@@ -46,8 +50,9 @@ import time
 # the repository root of this tool's checkout (its chip_smoke.py)
 _HERE = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-KEYS = {'pillar8x': ('k1_wrapper_ms', 'k1_kernel_ms', 'pillar_features_ms',
-                     'median_latency_s', 'median_step_s'),
+KEYS = {'pillar8x': ('k1_wrapper_ms', 'k1_kernel_ms', 'k2_bf16_ms',
+                     'k2_fp32_ms', 'pillar_features_ms', 'median_latency_s',
+                     'median_step_s'),
         'spconv8x': ('k3_conv_input_ms', 'k3_stage1_ms', 'k3_stage2_ms',
                      'k3_forecast_ms_est', 'median_latency_s')}
 
@@ -122,6 +127,15 @@ def _latencies(P, model, cfg, dev, n_requests, counter=None):
     return out
 
 
+def _smoke():
+    """This checkout's chip_smoke.py, for the inputs it makes."""
+    spec = importlib.util.spec_from_file_location(
+        'chip_smoke', os.path.join(_HERE, 'chip_smoke.py'))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
 def measure_spconv(root, n_requests):
     """One spconv8x turn: the package under ``root``."""
     sys.path.insert(0, os.path.abspath(root))
@@ -132,10 +146,7 @@ def measure_spconv(root, n_requests):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device('cuda', 0)
-    spec = importlib.util.spec_from_file_location(
-        'chip_smoke', os.path.join(_HERE, 'chip_smoke.py'))
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    smoke = _smoke()
     result = {'root': root, 'package': os.path.dirname(P.__file__)}
     cases, _ = smoke.k3_inputs(dev)
     for name, (feats, geo, w, nz, _) in cases.items():
@@ -161,6 +172,7 @@ def measure(root, n_requests, n_train_steps):
                                                                pillar_rows)
     from streamingflow_tpu_torch.ops import bin_sum as B
     from streamingflow_tpu_torch.ops import cuda_lib
+    from streamingflow_tpu_torch.ops import patch_pool as PP
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device('cuda', 0)
@@ -180,6 +192,14 @@ def measure(root, n_requests, n_train_steps):
         presorted=True, transposed_out=True))
     result['k1_kernel_ms'] = _event_ms(_kernel_alone(B, cuda_lib, data, pid,
                                                      n_bins, n_feat))
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x, coords, kept, bev_x, bev_y = _smoke().flagship_pool_inputs(cfg, dev,
+                                                                  gen)
+    for key, rows in (('k2_bf16_ms', x), ('k2_fp32_ms', x.float())):
+        result[key] = _event_ms(
+            lambda: PP.patch_pool_frames(rows, coords, kept, bev_x, bev_y))
+    del x, rows
 
     model = P.build_model(cfg, device=dev, dtype=torch.bfloat16, seed=0)
     enc = model.lidar_encoder
