@@ -66,7 +66,21 @@ the CUDA toolkit.  Phases, each printing one JSON line:
                  batch 1, MODEL.REMAT as configured) after one warm-up, with
                  the kernel launch counts read around each step (K2 on the
                  fp32 rows, uncast)
- 15. kernels     every kernel of the port with its launches, error and times
+ 15. cli         the port's entry points on the nuScenes data path: a
+                 flagship-size tree written from a seed (6 cameras at
+                 1600x900, 20 Hz LiDAR of 34,720-point sweeps, 20 moving
+                 boxes a scene, 2 scenes of 9 keyframes), the host time of
+                 an item's parts, the loader's host time a batch at 0 and
+                 at N_WORKERS workers, train.main on
+                 configs/prediction_lc_ode_variable.yml with the
+                 'pallas_patch' pool for one epoch (3 steps, validation, a
+                 checkpoint reloaded and held equal to the trained state),
+                 then evaluate.main on that checkpoint; K1, K2 and K2's
+                 backward counted around each step and each forecast
+ 16. kernels     every kernel of the port with its launches, error and times
+                 (cli_launches: of phase cli); then a check that every
+                 process a phase started (nvcc, the loaders' workers, their
+                 fork server and resource tracker) has ended
 
 The last line is {"ok": true, "device": {...}}.  Any failed phase raises, so
 the script exits non-zero with no result; so does a machine without CUDA,
@@ -76,6 +90,7 @@ torch.backends.cudnn.allow_tf32 = False): fp32 work runs in full fp32.
 """
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -1373,6 +1388,272 @@ def phase_train(cfg, dev, n_steps, card, n_points=80000):
     return counts()
 
 
+def _loader_times(cfg, n_workers, dev):
+    """Host seconds a batch of the train loader at ``n_workers`` workers.
+    The flagship tree has only a few train windows, so the loader reads
+    them over and over (a ``Subset`` that repeats the indices) for
+    max(3 x workers, 2 x windows) batches: the first batch's time (the
+    workers' start included), and the steady time a batch from the end of
+    the workers' first wave (batch ``max(n_workers, 1)``) to the last."""
+    import torch
+    from torch.utils.data import Subset
+    from streamingflow_tpu_torch.data.dataloader import (DataLoader,
+                                                         prepare_dataloaders)
+    _, _, train_ds, _ = prepare_dataloaders(cfg, return_dataset=True)
+    wave = max(n_workers, 1)
+    n_batches = max(3 * n_workers, 2 * len(train_ds) // cfg.BATCHSIZE)
+    repeated = Subset(train_ds, [i % len(train_ds)
+                                 for i in range(n_batches * cfg.BATCHSIZE)])
+    loader = DataLoader(repeated, cfg.BATCHSIZE, num_workers=n_workers,
+                        pin_memory=torch.device(dev).type == 'cuda')
+    t0 = time.perf_counter()
+    arrivals = [time.perf_counter() - t0 for _batch in loader]
+    loader.close()
+    if len(arrivals) != n_batches:
+        raise AssertionError(f'cli: the loader gave {len(arrivals)} of '
+                             f'{n_batches} batches')
+    return {'n_workers': n_workers, 'batches': n_batches,
+            'train_windows': len(train_ds), 'first_batch_s': arrivals[0],
+            'arrivals': arrivals, 'per_batch_s': (arrivals[-1] - arrivals[wave - 1])
+            / (n_batches - wave)}
+
+
+def _item_breakdown(cfg, n_items=3):
+    """Host seconds of the parts of a train item (the loader's work), each
+    summed over an item and averaged over ``n_items`` items after one
+    warm-up item: frames
+    (decode, resize, crop, normalise), depth maps (projection and
+    resize), LiDAR (20 sweeps grouped, padded, tile-sorted), BEV labels
+    (box rasters, then centers, offsets and flow)."""
+    from streamingflow_tpu_torch.data import nuscenes as N
+    from streamingflow_tpu_torch.data.dataloader import prepare_dataloaders
+    _, _, ds, _ = prepare_dataloaders(cfg, return_dataset=True)
+    spent = {}
+
+    def timed(name, fn):
+        def wrapped(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
+        return wrapped
+
+    for name in ('get_input_data', '_get_depth', 'get_label',
+                 'get_points_from_multisweeps'):
+        setattr(ds, name, timed(name, getattr(ds, name)))
+    centers = N.convert_instance_mask_to_center_and_offset_label
+    N.convert_instance_mask_to_center_and_offset_label = timed(
+        'instance_labels', centers)
+    try:
+        ds[0]                      # warm-up: first imports, file cache
+        spent.clear()
+        t0 = time.perf_counter()
+        for i in range(n_items):
+            ds[i]
+        item_s = (time.perf_counter() - t0) / n_items
+    finally:
+        N.convert_instance_mask_to_center_and_offset_label = centers
+    parts = {k: v / n_items for k, v in spent.items()}
+    parts['frames'] = parts.pop('get_input_data') - parts['_get_depth']
+    parts['depth'] = parts.pop('_get_depth')
+    parts['lidar'] = parts.pop('get_points_from_multisweeps')
+    parts['box_labels'] = parts.pop('get_label')
+    parts['other'] = item_s - sum(parts.values())
+    return {'item_s': item_s, **parts}
+
+
+def phase_cli(dev, card):
+    """The port's own entry points on the nuScenes data path: a
+    flagship-size tree written from a seed (data/mini_nuscenes.py), the
+    loader's host time a batch at 0 workers and at the config's N_WORKERS,
+    then ``train.main`` (one epoch of the shipped flagship config with the
+    'pallas_patch' pool: 3 steps, validation, a checkpoint) and
+    ``evaluate.main`` on the checkpoint it wrote, every kernel count set to
+    0 before the two and read after, and read around each step and each
+    forecast."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    import torch
+    from streamingflow_tpu_torch import evaluate as E
+    from streamingflow_tpu_torch import native
+    from streamingflow_tpu_torch import train as T
+    from streamingflow_tpu_torch.config import get_cfg
+    from streamingflow_tpu_torch.data import mini_nuscenes, raster
+    from streamingflow_tpu_torch.data.dataloader import stop_worker_server
+    from streamingflow_tpu_torch.ops import bin_sum as B
+    from streamingflow_tpu_torch.ops import patch_pool as PP
+    from streamingflow_tpu_torch.training.checkpoint import (
+        FILENAME, CheckpointManager)
+    if not native.available():
+        raise AssertionError('cli: the host point-cloud engine '
+                             '(streamingflow_tpu_torch/native) did not '
+                             'build or load')
+    cfg_file = os.path.join(ROOT, 'configs', 'prediction_lc_ode_variable.yml')
+    decoder = raster.image_decoder()
+    tmp = tempfile.mkdtemp(prefix='streamingflow_cli_')
+    try:
+        tree, log_dir = os.path.join(tmp, 'nuscenes'), os.path.join(tmp, 'log')
+        t0 = time.perf_counter()
+        image_format = 'jpg' if decoder == 'PIL' else 'ppm'
+        mini_nuscenes.flagship_tree(tree, image_format)
+        write_s = time.perf_counter() - t0
+        opts = ['DATASET.DATAROOT', tree, 'DATASET.VERSION', 'mini',
+                'MODEL.BEV_POOL_BACKEND', 'pallas_patch', 'EPOCHS', '1',
+                'LOGGING_INTERVAL', '1', 'LOG_DIR', log_dir]
+        cfg = get_cfg(argparse.Namespace(config_file=cfg_file, opts=opts))
+        item = _item_breakdown(cfg)
+        loader = [_loader_times(cfg, n, dev) for n in (0, cfg.N_WORKERS)]
+
+        def counts():
+            return {'bin_sum': B.launches, 'patch_pool': PP.launches,
+                    'patch_pool_fp32_rows': PP.launches_fp32,
+                    'patch_pool_bwd': PP.launches_bwd}
+
+        per = {'step': [], 'forecast': []}
+
+        def sync():
+            if torch.device(dev).type == 'cuda':
+                torch.cuda.synchronize()
+
+        def read_around(kind, fn):
+            def wrapped(*a, **kw):
+                before = counts()
+                sync()
+                t = time.perf_counter()
+                out = fn(*a, **kw)
+                sync()
+                per[kind].append({'s': time.perf_counter() - t, **{
+                    k: v - before[k] for k, v in counts().items()}})
+                return out
+            return wrapped
+
+        step_fn, fwd_fn = T.train_step, E.eval_forward
+        T.train_step = read_around('step', step_fn)
+        E.eval_forward = read_around('forecast', fwd_fn)
+        B.launches = PP.launches = PP.launches_fp32 = PP.launches_bwd = 0
+        try:
+            out = T.main(['--config-file', cfg_file, '--device', str(dev),
+                          *opts])
+            n_val = len(per['forecast'])
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text):
+                results = E.main(['--checkpoint', out['checkpoint_dir'],
+                                  '--device', str(dev)])
+        finally:
+            T.train_step, E.eval_forward = step_fn, fwd_fn
+        launches = counts()
+        print(text.getvalue(), end='', flush=True)
+
+        trainer = out['trainer']
+        if trainer.device != torch.device(dev):
+            raise AssertionError(f'cli: trained on {trainer.device}')
+        for i, losses in enumerate(out['losses']):
+            bad = [k for k, v in losses.items() if not math.isfinite(v)]
+            if bad:
+                raise AssertionError(f'cli: step {i}: {bad} not finite')
+        # K1 once a step and a forecast, K2 once each (the step's and the
+        # fp32 model's forecasts on fp32 rows), K2's backward once a step
+        want = {'step': {'bin_sum': 1, 'patch_pool': 1,
+                         'patch_pool_fp32_rows': 1, 'patch_pool_bwd': 1},
+                'forecast': {'bin_sum': 1, 'patch_pool': 1,
+                             'patch_pool_fp32_rows': 1, 'patch_pool_bwd': 0}}
+        for kind, calls in per.items():
+            for i, got in enumerate(calls):
+                got = {k: v for k, v in got.items() if k != 's'}
+                if got != want[kind]:
+                    raise AssertionError(f'cli: {kind} {i}: launches {got}, '
+                                         f'want {want[kind]}')
+        if len(per['step']) != len(out['losses']) or not per['step']:
+            raise AssertionError(f"cli: {len(per['step'])} steps counted, "
+                                 f"{len(out['losses'])} logged")
+        for key in ('vehicle IoU:', 'pq:', 'sq:', 'rq:',
+                    'mean forward time:'):
+            if key not in text.getvalue():
+                raise AssertionError(f'cli: evaluate printed no {key!r}')
+
+        # the checkpoint, reloaded, is the trained state exactly
+        ckpt = CheckpointManager(out['checkpoint_dir'])
+        path = os.path.join(out['checkpoint_dir'], str(ckpt.latest_step()),
+                            FILENAME)
+        t0 = time.perf_counter()
+        raw = ckpt.restore_raw()
+        load_s = time.perf_counter() - t0
+        state = trainer.module.state_dict()
+        opt = trainer.optimizer.state_dict()
+        if raw['model'].keys() != state.keys() or not all(
+                torch.equal(raw['model'][k], v.cpu())
+                for k, v in state.items()):
+            raise AssertionError('cli: the checkpoint\'s module state '
+                                 'differs from the trained one')
+        if raw['optimizer']['param_groups'] != opt['param_groups'] or \
+                raw['optimizer']['state'].keys() != opt['state'].keys() or \
+                not all(torch.equal(raw['optimizer']['state'][i][k],
+                                    v.cpu())
+                        for i, st in opt['state'].items()
+                        for k, v in st.items()):
+            raise AssertionError('cli: the checkpoint\'s Adam state '
+                                 'differs from the trained one')
+        prof = out['profiler']
+        line = {
+            'phase': 'cli', 'config': os.path.relpath(cfg_file, ROOT),
+            'native_engine': native.available(),
+            'image_decoder': decoder, 'image_format': image_format,
+            'tree_write_s': write_s, 'item_host_s': item, 'loader': loader,
+            'train_batches': len(per['step']),
+            'step_s': [c['s'] for c in per['step']],
+            'median_step_s': statistics.median(c['s'] for c in per['step']),
+            'eval_forward_s': [c['s'] for c in per['forecast']],
+            'median_eval_forward_s': statistics.median(
+                c['s'] for c in per['forecast'][n_val:]),
+            'train_spans_s': dict(prof.totals),
+            'losses': out['losses'], 'val': out['val'],
+            'eval': {'vehicle_iou': results['iou'].tolist(),
+                     **{k: v.tolist() for k, v in results['pq'].items()}},
+            'checkpoint': {'bytes': os.path.getsize(path),
+                           'save_s': prof.totals['checkpoint'],
+                           'load_s': load_s},
+            'launches': launches,
+            'per_step_launches': [{k: v for k, v in c.items() if k != 's'}
+                                  for c in per['step']],
+            'card': card}
+        emit(line)
+        return launches
+    finally:
+        # the loaders closed their workers; stop the server they were
+        # forked from
+        stop_worker_server()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _descendants():
+    """(pid, command line) of every live process below this one."""
+    parent = {}
+    for entry in filter(str.isdigit, os.listdir('/proc')):
+        try:
+            with open(f'/proc/{entry}/stat') as f:
+                state, ppid = f.read().rsplit(')', 1)[1].split()[:2]
+        except (OSError, ValueError):
+            continue
+        if state != 'Z':
+            parent[int(entry)] = int(ppid)
+    found, frontier = [], [os.getpid()]
+    while frontier:
+        kids = [p for p, pp in parent.items() if pp in frontier]
+        found += kids
+        frontier = kids
+    out = []
+    for pid in found:
+        try:
+            with open(f'/proc/{pid}/cmdline') as f:
+                out.append((pid, f.read().replace('\0', ' ')[:200]))
+        except OSError:
+            pass
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--requests', type=int, default=3)
@@ -1438,6 +1719,7 @@ def main(argv=None):
     phase_patch_pool_bwd(cfg, dev, results)
     phase_train_tiny(dev)
     train_launches = phase_train(cfg, dev, args.train_steps, smi)
+    cli_launches = phase_cli(dev, smi)
 
     # launches: of the serving path's requests (bin_sum, patch_pool,
     # winfuse), of the training steps (patch_pool_bwd; train_launches for the
@@ -1447,12 +1729,14 @@ def main(argv=None):
              source='streamingflow_tpu_torch/csrc/bin_sum.cu',
              replaces='streamingflow_tpu/ops/pallas_bin.py:63',
              launches=launches['bin_sum'],
-             train_launches=train_launches['bin_sum'], **results['bin_sum']),
+             train_launches=train_launches['bin_sum'],
+             cli_launches=cli_launches['bin_sum'], **results['bin_sum']),
         dict(name='patch_pool', route='cuda',
              source='streamingflow_tpu_torch/csrc/patch_pool.cu',
              replaces='streamingflow_tpu/ops/pallas_patch_pool.py:49',
              launches=launches['patch_pool'],
              train_launches=train_launches['patch_pool'],
+             cli_launches=cli_launches['patch_pool'],
              **results['patch_pool']),
         dict(name='winfuse', route='cuda',
              source='streamingflow_tpu_torch/csrc/winfuse.cu',
@@ -1466,12 +1750,18 @@ def main(argv=None):
              source='streamingflow_tpu_torch/csrc/patch_pool.cu',
              replaces='streamingflow_tpu/ops/pallas_patch_pool.py:257',
              launches=train_launches['patch_pool_bwd'],
+             cli_launches=cli_launches['patch_pool_bwd'],
              **results['patch_pool_bwd']),
     ]
     for k in kernels:
         if k['launches'] < 1:
             raise AssertionError(f"{k['name']} was not launched on the main "
                                  f"path")
+    # every process a phase started (nvcc, loader workers, the workers'
+    # fork server and resource tracker) has ended
+    left = _descendants()
+    if left:
+        raise AssertionError(f'processes still running: {left}')
     line = {'kernels': kernels}
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, 'w') as f:

@@ -431,6 +431,10 @@ def _merge_into(node: Any, d: dict) -> None:
         else:
             if isinstance(cur, tuple) and isinstance(v, list):
                 v = tuple(v)
+            if isinstance(cur, float) and isinstance(v, str):
+                # YAML 1.1 reads '2e-4' (no dot) as a string: the shipped
+                # configs/prediction_lc_ode_variable.yml's OPTIMIZER.LR
+                v = float(v)
             setattr(node, k, v)
 
 

@@ -29,6 +29,21 @@ same rules: ``params/model/...``, ``params/task_weights/{name}_weight`` and
 ``batch_stats/model/...``.  :func:`state_to_flax` is the way back: a
 module's parameters, gradients and BatchNorm statistics as numpy trees under
 the flax names and layouts, to compare leaf by leaf.
+
+:func:`save_flax_variables_as_checkpoint` carries a JAX training run's
+weights into a port checkpoint (training/checkpoint.py) that the port's
+``evaluate`` and ``PRETRAINED`` warm start load.  With both packages
+installed::
+
+    from streamingflow_tpu.training.checkpoint import CheckpointManager
+    ckpt = CheckpointManager('LOG_DIR/TAG/checkpoints')   # orbax, JAX side
+    raw, cfg = ckpt.restore_raw(), ckpt.load_cfg()
+    from streamingflow_tpu_torch.config import Config
+    from streamingflow_tpu_torch.convert import \
+        save_flax_variables_as_checkpoint
+    save_flax_variables_as_checkpoint(
+        raw, Config().merge_dict(cfg.to_dict()), 'port_ckpt',
+        ckpt.latest_step())
 """
 from __future__ import annotations
 
@@ -170,3 +185,22 @@ def state_to_flax(model: nn.Module, grads: bool = False
                 else leaf
             out[col][path] = value if back is None else back(value)
     return out
+
+
+def save_flax_variables_as_checkpoint(variables: Mapping, cfg, directory: str,
+                                      step: int) -> str:
+    """Write the JAX train state's weights (``variables``: the numpy tree
+    of the JAX ``CheckpointManager(...).restore_raw()``, or any mapping
+    with ``params`` and ``batch_stats``) as step ``step`` of a port
+    checkpoint directory, with ``cfg`` (a port Config) beside it.  Adam's
+    state is not carried across: such a checkpoint is for evaluation or a
+    warm start.  Returns the checkpoint file's path."""
+    from .training.checkpoint import CheckpointManager
+    from .training.trainer import StreamingFlowTrainModule
+    module = StreamingFlowTrainModule(cfg)
+    state = flax_to_state_dict(module, {
+        'params': variables['params'],
+        'batch_stats': variables.get('batch_stats', {})})
+    return CheckpointManager(directory).write(
+        step, {'model': state, 'optimizer': None, 'optimizer_step': None,
+               'generator': None}, cfg)

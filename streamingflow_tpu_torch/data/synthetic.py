@@ -3,43 +3,17 @@
 A copy of streamingflow_tpu/data/synthetic.py: the same seed gives the same
 arrays (images, intrinsics, extrinsics, labels, padded point clouds,
 relative timestamps), channels last, as numpy.  Point clouds are grouped by
-2048-bin BEV tile (``tile_sort_points``), the order the pillar bin-sum
-kernel takes with ``presorted=True``.  ``tiny_config`` shrinks every axis
-for CPU-runnable tests.
+2048-bin BEV tile (``native.tile_sort_points``, as the loader groups them),
+the order the pillar bin-sum kernel takes with ``presorted=True``.
+``tiny_config`` shrinks every axis for CPU-runnable tests.
 """
 from __future__ import annotations
 
 import numpy as np
 
+from .. import native
 from ..config import Config
-
-# bins of one tile of the pillar bin-sum (ops/bin_sum.py)
-BINS_PER_TILE = 2048
-
-
-def tile_sort_points(points: np.ndarray, n_valid: int, point_cloud_range,
-                     voxel_size, bins_per_tile: int) -> np.ndarray:
-    """Group the first ``n_valid`` rows of (N, C>=3) float32 points by BEV
-    bin tile (stable sort by tile; out-of-range points land in the last
-    tile, the trash bin's).  Returns the array, sorted in place."""
-    pts = np.ascontiguousarray(points, np.float32)
-    n_valid = int(min(n_valid, pts.shape[0]))
-    if n_valid <= 0:
-        return pts
-    rng = np.asarray(point_cloud_range, np.float32)
-    vsz = np.asarray(voxel_size, np.float32)
-    head = pts[:n_valid]
-    nx = int(round((rng[3] - rng[0]) / vsz[0]))
-    ny = int(round((rng[4] - rng[1]) / vsz[1]))
-    cx = np.floor((head[:, 0] - rng[0]) / vsz[0]).astype(np.int64)
-    cy = np.floor((head[:, 1] - rng[1]) / vsz[1]).astype(np.int64)
-    ok = ((cx >= 0) & (cx < nx) & (cy >= 0) & (cy < ny)
-          & (head[:, 2] >= rng[2]) & (head[:, 2] < rng[5])
-          & np.isfinite(head[:, :3]).all(axis=1))
-    n_tiles = (nx * ny + 1 + bins_per_tile - 1) // bins_per_tile
-    tile = np.where(ok, (cx * ny + cy) // bins_per_tile, n_tiles - 1)
-    pts[:n_valid] = head[np.argsort(tile, kind='stable')]
-    return pts
+from ..ops.bin_sum import BINS_PER_TILE
 
 
 def tiny_config() -> Config:
@@ -219,7 +193,7 @@ def make_batch(cfg: Config, batch_size: int = 1, seed: int = 0,
         # groups arrive bucket-grouped by BEV bin tile
         for b in range(B):
             for t in range(n_lidar):
-                pts[b, t] = tile_sort_points(
+                pts[b, t] = native.tile_sort_points(
                     pts[b, t], n_points, pc_range,
                     cfg.MODEL.SPARSE_ENCODER.VOXEL_SIZE, BINS_PER_TILE)
     points = pts

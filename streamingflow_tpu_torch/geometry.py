@@ -24,6 +24,20 @@ def calculate_birds_eye_view_parameters(x_bounds, y_bounds, z_bounds):
     return bev_resolution, bev_start_position, bev_dimension
 
 
+def update_intrinsics(intrinsics, top_crop=0.0, left_crop=0.0,
+                      scale_width=1.0, scale_height=1.0) -> np.ndarray:
+    """Adjust (..., 3, 3) intrinsics (numpy, float32) for a resize then a
+    crop."""
+    intrinsics = np.array(intrinsics, dtype=np.float32, copy=True)
+    intrinsics[..., 0, 0] *= scale_width
+    intrinsics[..., 0, 2] *= scale_width
+    intrinsics[..., 1, 1] *= scale_height
+    intrinsics[..., 1, 2] *= scale_height
+    intrinsics[..., 0, 2] -= left_crop
+    intrinsics[..., 1, 2] -= top_crop
+    return intrinsics
+
+
 def euler2mat(angle: torch.Tensor) -> torch.Tensor:
     """Euler angles (..., 3) -> rotation matrices (..., 3, 3), composed
     x @ y @ z."""

@@ -51,7 +51,7 @@ class MaskedBatchNorm(nn.BatchNorm1d):
         if self.training:
             raise NotImplementedError('MaskedBatchNorm in train mode is not '
                                       'ported yet (ROADMAP.md, Queue 1 item '
-                                      '11: training)')
+                                      '14c: spconv8x training)')
         c = self.num_features
         inv = torch.rsqrt(self.running_var.float() + self.eps) * \
             self.weight.float()
@@ -227,13 +227,13 @@ class LidarBEVEncoder(nn.Module):
             raise NotImplementedError(
                 f'SPARSE_ENCODER.ENGINE={cfg.ENGINE!r} / Z_FORMULATION='
                 f'{cfg.Z_FORMULATION!r} is not ported yet (ROADMAP.md, Queue '
-                f"1 item 16 and 10c); the port runs ENGINE='column' with "
+                f"1 items 14d and 16); the port runs ENGINE='column' with "
                 f"Z_FORMULATION in {FORMULATIONS}")
         if cfg.DENSE_TAIL_FROM_STAGE != DENSE_TAIL_FROM_STAGE:
             raise NotImplementedError(
                 f'SPARSE_ENCODER.DENSE_TAIL_FROM_STAGE='
                 f'{cfg.DENSE_TAIL_FROM_STAGE} is not ported yet (ROADMAP.md, '
-                f'Queue 1 item 10c); the port runs {DENSE_TAIL_FROM_STAGE}')
+                f'Queue 1 item 14b); the port runs {DENSE_TAIL_FROM_STAGE}')
         self.cfg = cfg
         self.last_n_dropped: Dict[str, torch.Tensor] = {}
         self.conv_input = SubMConvBNReLU(cfg.IN_CHANNELS, cfg.BASE_CHANNELS)

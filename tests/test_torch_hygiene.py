@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no file of streamingflow_tpu_torch/ nor
-chip_smoke.py imports JAX, flax or the JAX package; importing the port needs
-neither JAX nor PyYAML; and its entry points do not fall back to the CPU
-when CUDA is absent."""
+chip_smoke.py imports JAX, flax, orbax, OpenCV or the JAX package, and PIL
+only inside the functions that use it where it is installed; importing the
+port needs neither JAX nor PyYAML; and its entry points and CLIs do not
+fall back to the CPU when CUDA is absent."""
 import ast
 import os
 import subprocess
@@ -12,7 +13,8 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'streamingflow_tpu')
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'cv2',
+             'streamingflow_tpu')
 
 
 def _port_files():
@@ -34,11 +36,29 @@ def test_no_port_file_imports_jax_or_the_jax_package():
     assert len(files) > 10
     names = {p.name for p in files}
     assert {'trainer.py', 'losses.py', 'trainmode.py',
-            'exp_bin_variants.py'} <= names
+            'exp_bin_variants.py', 'train.py', 'evaluate.py',
+            'evaluate_streaming.py', 'evaluate_datastream.py',
+            'checkpoint.py', 'logging.py', 'metrics.py', 'instance.py',
+            'visualisation.py', 'nuscenes.py', 'nuscenes_sdk.py',
+            'labels.py', 'lyft.py', 'sampler.py', 'dataloader.py',
+            'raster.py', 'mini_nuscenes.py'} <= names
     bad = [(str(p.relative_to(ROOT)), name) for p in files
            for name in _imports(p)
            if name.split('.')[0] in FORBIDDEN]
     assert not bad, bad
+
+
+def test_pil_is_imported_only_inside_functions():
+    """PIL is optional on a card machine: no port file imports it at
+    module level, so the port imports without it."""
+    for path in _port_files():
+        tree = ast.parse(path.read_text(), str(path))
+        for node in tree.body:
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else
+                     [node.module or ''] if isinstance(node, ast.ImportFrom)
+                     else [])
+            assert not any(n.split('.')[0] == 'PIL' for n in names), path
 
 
 def test_import_needs_neither_jax_nor_yaml():
@@ -48,9 +68,21 @@ def test_import_needs_neither_jax_nor_yaml():
             'streamingflow_tpu_torch.layers.trainmode, '
             'streamingflow_tpu_torch.training.losses, '
             'streamingflow_tpu_torch.training.trainer, '
-            'streamingflow_tpu_torch.tools.exp_bin_variants; '
-            'print(sorted(m for m in ("jax", "flax", "yaml", '
-            '"streamingflow_tpu") if m in sys.modules))')
+            'streamingflow_tpu_torch.tools.exp_bin_variants, '
+            'streamingflow_tpu_torch.train, streamingflow_tpu_torch.evaluate, '
+            'streamingflow_tpu_torch.evaluate_streaming, '
+            'streamingflow_tpu_torch.evaluate_datastream, '
+            'streamingflow_tpu_torch.native, '
+            'streamingflow_tpu_torch.data.nuscenes, '
+            'streamingflow_tpu_torch.data.lyft, '
+            'streamingflow_tpu_torch.data.dataloader, '
+            'streamingflow_tpu_torch.data.mini_nuscenes, '
+            'streamingflow_tpu_torch.training.checkpoint, '
+            'streamingflow_tpu_torch.training.metrics, '
+            'streamingflow_tpu_torch.training.logging, '
+            'streamingflow_tpu_torch.utils.visualisation; '
+            'print(sorted(m for m in ("jax", "flax", "orbax", "cv2", "PIL", '
+            '"yaml", "streamingflow_tpu") if m in sys.modules))')
     out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
                          env={**os.environ, 'PYTHONPATH': str(ROOT)})
@@ -102,3 +134,21 @@ def test_chip_smoke_needs_the_card(tmp_path):
                              env={**os.environ, 'CUDA_VISIBLE_DEVICES': ''})
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+@pytest.mark.parametrize('cli', ['train', 'evaluate', 'evaluate_streaming',
+                                 'evaluate_datastream'])
+def test_cli_without_device_exits_naming_cuda(cli):
+    """``python -m streamingflow_tpu_torch.<cli>`` with no --device on a
+    machine without CUDA exits non-zero, naming CUDA, before any work."""
+    args = (['--config-file', str(ROOT / 'configs' /
+                                  'prediction_lc_ode_variable.yml')]
+            if cli == 'train' else ['--checkpoint', 'no_such_dir'])
+    out = subprocess.run([sys.executable, '-m', f'streamingflow_tpu_torch.{cli}',
+                          *args], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120,
+                         env={**os.environ, 'PYTHONPATH': str(ROOT),
+                              'CUDA_VISIBLE_DEVICES': ''})
+    assert out.returncode != 0
+    assert 'CUDA' in out.stderr.splitlines()[-1], out.stderr[-2000:]
+    assert not os.path.exists(ROOT / 'no_such_dir')

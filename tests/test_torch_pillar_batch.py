@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from streamingflow_tpu.models import pillar_encoder as jpe
-from streamingflow_tpu_torch.data.synthetic import tile_sort_points
+from streamingflow_tpu_torch.native import tile_sort_points
 from streamingflow_tpu_torch.models import pillar_encoder as ppe
 from streamingflow_tpu_torch.ops import bin_sum as B
 
