@@ -37,7 +37,11 @@ the CUDA toolkit.  Phases, each printing one JSON line:
                  plain down1, bf16 on the tensor cores and fp32 on the CUDA
                  cores; 16->16 at the tiny config's nz 25) and a forced-drop
                  plan, with the route of each case and the kernels' ptxas
-                 report (registers, spills)
+                 report (registers, spills); its backward at stage 1 and
+                 stage 2 in bf16 and fp32 and over the forced-drop plan:
+                 d feats (the forward's kernels over the reversed map) and
+                 d weights (csrc/winfuse_wgrad.cu) vs the plain forward's
+                 autograd over the full found, with times and bounds
   6. tiny        a tiny camera+LiDAR forward on the card (kernels) vs the
                  same weights on the CPU (plain versions)
   7. tiny_spconv the same on the spconv8x backbone ('winfuse')
@@ -66,6 +70,14 @@ the CUDA toolkit.  Phases, each printing one JSON line:
                  batch 1, MODEL.REMAT as configured) after one warm-up, with
                  the kernel launch counts read around each step (K2 on the
                  fp32 rows, uncast)
+ 14b. train_tiny_spconv  one tiny camera + spconv8x training step on the
+                 card (K2, K3 forward, d feats, d weights) vs the same step
+                 on the CPU, fp32, at a bar derived from the CPU's own fp32
+                 step against its fp64 step
+ 14c. train_spconv  --train-steps flagship spconv8x training steps
+                 (fp32 parameters, batch 1, LiDAR branch in bf16, MODEL.REMAT
+                 and REMAT_LADDER on) after one warm-up: step time, peak
+                 memory, launches a step, the diag/* capacity counters
  15. cli         the port's entry points on the nuScenes data path: a
                  flagship-size tree written from a seed (6 cameras at
                  1600x900, 20 Hz LiDAR of 34,720-point sweeps, 20 moving
@@ -796,6 +808,129 @@ def _winfuse_case(name, feats, geo, w, nz, zmask=None, reps=10):
                 bound_by='bytes' if t_bytes >= t_ops else 'operations')
 
 
+def _k3_bwd_ops(geo, zmask, nz, cin, cout):
+    """The products K3's backward needs on these inputs: the cotangent is
+    zero at inactive output sites (the masked BN after the conv), so each
+    active output site (v, zo) times each found tap of v times each z tap
+    whose input z is in range, times Cin x Cout, twice (multiply, add).
+    d feats and d weights each need as many."""
+    import torch
+    valid = torch.full((nz,), 3, device=zmask.device)
+    valid[0] = valid[-1] = 2
+    per_col = (zmask.reshape(-1, nz) * valid).sum(-1)
+    return 2 * cin * cout * int((per_col[None] * geo.grad_found).sum())
+
+
+def _winfuse_bwd_case(name, feats, geo, w, nz, zmask, reps=5):
+    """K3's backward on the card against the plain forward's autograd over
+    the map's full found (the JAX ``_winfuse_bwd``): d feats through the
+    forward's kernels over the reversed map (``subm_conv_dgrad``), d weights
+    through csrc/winfuse_wgrad.cu (``subm_conv_wgrad``), both direct and
+    through the autograd Function (forward over ``geo.found``, the kept
+    taps), for a random cotangent zero at the inactive sites.  Tolerances:
+    d feats as the forward's (fp32 1e-5 of the scale; bf16 2^-7, the
+    weights rounded to bf16 by the kernel and the result rounded once);
+    d weights against the plain version's sums in fp64 (the exact value of
+    the fp32 or bf16 inputs' products), 1e-4 of the scale: fp32 sums of
+    ~10^6 products (the plain fp32 autograd's own distance from it is
+    reported beside)."""
+    import torch
+    from streamingflow_tpu_torch.ops import winfuse as WF
+    dev = feats.device
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rows, cin, cout = geo.nbr.shape[1], w.shape[1], w.shape[2]
+    zm = zmask.reshape(rows, nz, 1)
+    g = (torch.randn(rows, nz, cout, device=dev, generator=gen) * zm).to(
+        feats.dtype).reshape(rows, nz * cout)
+    full, src_t = geo.grad_found, geo.src_t
+    x = feats.clone().requires_grad_()
+    wp = w.detach().clone().requires_grad_()
+    WF.subm_conv_plain(x, geo.nbr, full, wp, nz).backward(g)
+    want_df, want_dw = x.grad, wp.grad
+    counts = (WF.launches_dgrad, WF.launches_wgrad)
+    got_df = WF.subm_conv_dgrad(g, src_t, w, nz)
+    got_dw = WF.subm_conv_wgrad(feats, geo.nbr, full, g, nz)
+    xf = feats.clone().requires_grad_()
+    wf = w.detach().clone().requires_grad_()
+    WF.subm_conv_winfuse(xf, geo.nbr, geo.found, wf, nz, grad_found=full,
+                         src_t=src_t).backward(g)
+    torch.cuda.synchronize()
+    if (WF.launches_dgrad - counts[0], WF.launches_wgrad - counts[1]) != \
+            (2, 2):
+        raise AssertionError(f'winfuse backward {name}: dgrad / wgrad did '
+                             f'not launch their kernels')
+    # the Function runs the same kernels: the same bits (d weights in the
+    # weights' type)
+    if not (torch.equal(xf.grad, got_df) and
+            torch.equal(wf.grad, got_dw.to(wf.dtype))):
+        raise AssertionError(f'winfuse backward {name}: the autograd '
+                             f'Function differs from its kernels')
+    bf16 = feats.dtype == torch.bfloat16
+    df_scale = float(want_df.float().abs().max())
+    dw_scale = float(want_dw.abs().max())
+    df_tol = (dict(rtol=2 ** -7, atol=2 ** -7 * df_scale) if bf16 else
+              dict(rtol=1e-5, atol=1e-5 * df_scale))
+    exact_dw = WF.subm_conv_wgrad_plain(feats.double(), geo.nbr, full,
+                                        g.double(), nz)
+    dw_tol = dict(rtol=1e-4, atol=1e-4 * dw_scale)
+    check_close(f'winfuse dgrad {name}', got_df, want_df, **df_tol)
+    check_close(f'winfuse wgrad {name}', got_dw, exact_dw, **dw_tol)
+    kept_dw = None
+    if not torch.equal(geo.found, full):
+        # the backward keeps the taps the forward's plan dropped: the
+        # gradient over the kept taps alone is another one
+        kept_dw = WF.subm_conv_wgrad_plain(feats, geo.nbr, geo.found, g, nz)
+        if max_err(kept_dw, exact_dw)[0] <= 10 * dw_tol['atol']:
+            raise AssertionError(f'winfuse backward {name}: the dropped '
+                                 f'taps do not move the gradient')
+    es = feats.element_size()
+    ops = _k3_bwd_ops(geo, zmask, nz, cin, cout)
+    peak = BF16_FLOPS if bf16 else FP32_FLOPS
+    maps = geo.nbr.numel() * 5
+    # d feats: the cotangent rows the reversed taps read, the whole output,
+    # the weights, the reversed map
+    n_rows_t = int(torch.unique(src_t[src_t >= 0]).numel())
+    dgrad_bytes = (n_rows_t * g.shape[1] + got_df.numel() + w.numel()) * es \
+        + src_t.numel() * 4
+    # d weights: the whole cotangent, the source rows the found taps read,
+    # the map, the fp32 result
+    n_rows = int(torch.unique(geo.nbr[full]).numel())
+    wgrad_bytes = (g.numel() + n_rows * feats.shape[1]) * es + maps + \
+        got_dw.numel() * 4
+
+    def bound(n_bytes):
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / peak
+        return max(t_bytes, t_ops) * 1e3, ('bytes' if t_bytes >= t_ops
+                                           else 'operations')
+    flipped = WF.flipped_weights(w)
+    out = dict(case=name, dtype=str(feats.dtype).split('.')[-1], nz=nz,
+               cin=cin, cout=cout, rows=rows,
+               active_output_sites=int(zmask.sum()),
+               dropped_taps_kept_in_backward=int((full & ~geo.found).sum()),
+               ops=ops, tolerance={'dgrad': df_tol, 'wgrad': dw_tol})
+    out['wgrad_plain_autograd_fp32_err'] = max_err(want_dw, exact_dw)[0]
+    for kind, n_bytes, got, want, fn, plain in (
+            ('dgrad', dgrad_bytes, got_df, want_df,
+             lambda: WF.subm_conv_dgrad(g, src_t, w, nz),
+             lambda: WF.subm_conv_plain(g, src_t.clamp(min=0), src_t >= 0,
+                                        flipped, nz)),
+            ('wgrad', wgrad_bytes, got_dw, exact_dw,
+             lambda: WF.subm_conv_wgrad(feats, geo.nbr, full, g, nz),
+             lambda: WF.subm_conv_wgrad_plain(feats, geo.nbr, full, g,
+                                              nz))):
+        bound_ms, bound_by = bound(n_bytes)
+        out[kind] = dict(max_abs_err=max_err(got, want)[0],
+                         max_abs_want=float(want.float().abs().max()),
+                         ms=cuda_ms(fn, reps=reps),
+                         plain_ms=cuda_ms(plain, reps=2, warmup=1),
+                         bytes=n_bytes, bound_ms=bound_ms,
+                         bound_by=bound_by)
+    if kept_dw is not None:
+        out['wgrad']['kept_taps_only_max_abs_diff'] = \
+            max_err(kept_dw, exact_dw)[0]
+    return out
+
+
 def k3_inputs(dev):
     """K3's inputs at the flagship spconv8x geometry of one request (the 5
     clouds of 80k points voxelized into columns, stacked as the main path
@@ -929,7 +1064,7 @@ def phase_winfuse(dev, results):
         raise AssertionError(f'winfuse forced drop: card {drops}, CPU '
                              f'{cpu_drops}')
     geo_drop = L.ColumnGeo(torch.cat(nbrs, 1).int(), torch.cat(founds, 1),
-                           None)
+                           None, geo2.grad_found, geo2.src_t)
     cases.append(_winfuse_case('stage2_drop', rand(n * cap2, nz2 * 32),
                                geo_drop, weights(32, 32), nz2, reps=3))
     main = cases[2]
@@ -938,6 +1073,30 @@ def phase_winfuse(dev, results):
         max_abs_err=main['max_abs_err'], ms=main['kernel_ms'],
         plain_ms=main['twin_ms'], library_ms=None,
         bound_ms=main['bound_us'] / 1e3, bound_by=main['bound_by'])
+
+    # the backward (the training step's): d feats and d weights at the
+    # main path's stage-1 and stage-2 shapes, bf16 as the step runs them
+    # and fp32, and over the forced-drop plan (forward over the kept taps,
+    # backward over all of them)
+    f32 = torch.float32
+    f_drop = x.path_like(cs2, nz2, 32)
+    bwd = [_winfuse_bwd_case(nm, f, geo, w, nz, zm)
+           for nm, (f, geo, w, nz, zm) in inputs.items()
+           if nm != 'conv_input']
+    bwd += [
+        _winfuse_bwd_case('stage1_fp32', x.path_like(cs1, nz1, 16).float(),
+                          geo1, weights(16, 16, f32), nz1, cs1.zmask, reps=2),
+        _winfuse_bwd_case('stage2_fp32', x.path_like(cs2, nz2, 32).float(),
+                          geo2, weights(32, 32, f32), nz2, cs2.zmask, reps=2),
+        _winfuse_bwd_case('stage2_drop', f_drop, geo_drop, weights(32, 32),
+                          nz2, cs2.zmask, reps=2),
+    ]
+    main_bwd = bwd[1]                         # stage 2, bf16
+    for kind in ('dgrad', 'wgrad'):
+        c = main_bwd[kind]
+        results[f'winfuse_{kind}'] = dict(
+            max_abs_err=c['max_abs_err'], ms=c['ms'], plain_ms=c['plain_ms'],
+            library_ms=None, bound_ms=c['bound_ms'], bound_by=c['bound_by'])
     emit({'phase': 'winfuse', 'clouds': n,
           'active_columns': {'stage1': int(cs1.col_mask.sum()),
                              'stage2': int(cs2.col_mask.sum())},
@@ -947,8 +1106,10 @@ def phase_winfuse(dev, results):
           'n_dropped': {'stage1': geo1.n_dropped.tolist(),
                         'stage2': geo2.n_dropped.tolist(),
                         'forced': drops},
-          'cases': cases,
+          'cases': cases, 'backward_cases': bwd,
           'ptxas': _ptxas_report(cuda_lib.BUILD_LOG.get('winfuse', '')),
+          'wgrad_ptxas': _ptxas_report(
+              cuda_lib.BUILD_LOG.get('winfuse_wgrad', '')),
           'down1_plain_ms_per_cloud': down1_ms,
           'conv_input_pitch_rows_ms': pitch_ms,
           'forecast_ms_est': ms['conv_input'] + 4 * ms['stage1']
@@ -1388,6 +1549,201 @@ def phase_train(cfg, dev, n_steps, card, n_points=80000):
     return counts()
 
 
+def _no_dropout(trainer):
+    from streamingflow_tpu_torch.layers.trainmode import Dropout
+    for m in trainer.module.modules():
+        if isinstance(m, Dropout):
+            m.rate = 0.0
+    return trainer
+
+
+def phase_train_tiny_spconv(dev):
+    """One tiny camera + spconv8x training step on the card (K2 forward and
+    backward, K3 forward, d feats and d weights) against the same step on
+    the CPU (plain versions), same initial weights and batch, dropout off.
+
+    In fp32, since K3's kernels take fp32 and bf16.  The tiny step's
+    gradient is ill-conditioned in fp32 (tests/test_torch_train_step.py
+    measures it), so both fp32 steps are held against the CPU's step in
+    fp64, and the card's at the bars the fp32 step is held to against the
+    JAX package's (tests/test_torch_train_step.py): each loss 1e-3
+    relative, the BN statistics 5e-3 of their scale, the gradient norm 10 %,
+    and the whole gradient's cosine, here also the LiDAR encoder's (the
+    gradient K3's backward carries), above 0.98.  The card's fp32 forward
+    lands ~10x further from fp64 than the CPU's (cuDNN's fp32 convolution
+    algorithms), so no bar is a multiple of the CPU's own distance; K3's
+    backward is held tightly in phase winfuse.  The diagnostics are
+    equal."""
+    import torch
+    import streamingflow_tpu_torch as P
+    from streamingflow_tpu_torch.data import make_batch
+    from streamingflow_tpu_torch.ops import patch_pool as PP
+    from streamingflow_tpu_torch.ops import winfuse as WF
+    tol = {'loss_rel': 1e-3, 'bn_stats': 5e-3, 'grad_norm_rel': 0.1,
+           'grad_cosine': 0.98, 'lidar_grad_cosine': 0.98}
+    cfg, cfg64 = _tiny_spconv_config(), _tiny_spconv_config()
+    cfg64.MODEL.SPARSE_ENCODER.COMPUTE_DTYPE = 'float64'
+    cpu = _no_dropout(P.build_trainer(cfg, device='cpu', seed=0))
+    cpu64 = _no_dropout(P.build_trainer(cfg64, device='cpu'))
+    gpu = _no_dropout(P.build_trainer(cfg, device=dev))
+    cpu64.module.load_state_dict(cpu.module.state_dict())
+    cpu64.module.double()
+    gpu.module.load_state_dict(cpu.module.state_dict())
+    batch = make_batch(cfg, 1, seed=1, n_points=512)
+    runs = {'cpu_fp32': P.train_step(cpu, batch),
+            'cpu_fp64': P.train_step(cpu64, batch)}
+    counters = {'patch_pool': (PP, 'launches'),
+                'patch_pool_bwd': (PP, 'launches_bwd'),
+                'winfuse': (WF, 'launches'),
+                'winfuse_dgrad': (WF, 'launches_dgrad'),
+                'winfuse_wgrad': (WF, 'launches_wgrad')}
+    before = {k: getattr(m, a) for k, (m, a) in counters.items()}
+    runs['card'] = P.train_step(gpu, batch)
+    torch.cuda.synchronize()
+    launches = {k: getattr(m, a) - before[k]
+                for k, (m, a) in counters.items()}
+    if min(launches.values()) < 1:
+        raise AssertionError(f'tiny spconv8x train step: a kernel did not '
+                             f'launch: {launches}')
+    want = runs['cpu_fp64']
+    failed = []
+    for k, w in want.items():
+        if k.startswith('diag/') and not \
+                int(runs['card'][k]) == int(runs['cpu_fp32'][k]) == int(w):
+            failed.append(f'{k} {int(runs["card"][k])}, CPU '
+                          f'{int(runs["cpu_fp32"][k])}')
+    for k, v in runs['card'].items():
+        if not torch.isfinite(v).all():
+            raise AssertionError(f'tiny spconv8x train step: {k} not finite')
+
+    def grads(trainer, metrics):
+        unclip = max(float(metrics['grad_norm']) / cfg.GRAD_NORM_CLIP, 1.0)
+        return {k: p.grad.detach().cpu().double() * unclip
+                for k, p in trainer.module.named_parameters()}
+
+    def cosine(a, b, keys):
+        dot = sum(float((a[k] * b[k]).sum()) for k in keys)
+        return dot / (sum(float((a[k] ** 2).sum()) for k in keys)
+                      * sum(float((b[k] ** 2).sum()) for k in keys)) ** 0.5
+
+    g64 = grads(cpu64, want)
+    names = list(g64)
+    lidar = [k for k in names if k.startswith('model.lidar_encoder.')]
+    s64 = cpu64.module.state_dict()
+    report = {}
+    for run, trainer in (('card', gpu), ('cpu_fp32', cpu)):
+        got = runs[run]
+        losses = {k: abs(float(got[k]) - float(w)) / max(abs(float(w)), 1e-6)
+                  for k, w in want.items() if not k.startswith('diag/')
+                  and k != 'grad_norm' and float(w) != 0.0}
+        gr = grads(trainer, got)
+        state = trainer.module.state_dict()
+        stats = max(float((state[k].cpu().double() - w).abs().max())
+                    / max(float(w.abs().max()), 1.0)
+                    for k, w in s64.items()
+                    if k not in g64 and 'num_batches' not in k)
+        report[run] = {
+            'loss_rel_worst': max(losses.values()),
+            'grad_norm_rel': abs(float(got['grad_norm'])
+                                 - float(want['grad_norm']))
+            / float(want['grad_norm']),
+            'bn_stats': stats,
+            'grad_cosine': cosine(gr, g64, names),
+            'lidar_grad_cosine': cosine(gr, g64, lidar)}
+    card = report['card']
+    for k in ('loss_rel', 'bn_stats', 'grad_norm_rel'):
+        got = card['loss_rel_worst' if k == 'loss_rel' else k]
+        if got > tol[k]:
+            failed.append(f'{k} {got:.3g} > {tol[k]}')
+    for k in ('grad_cosine', 'lidar_grad_cosine'):
+        if card[k] < tol[k]:
+            failed.append(f'{k} {card[k]:.6f} < {tol[k]}')
+    emit({'phase': 'train_tiny_spconv', 'dtype': 'float32',
+          'reference': 'the CPU step in float64', 'launches': launches,
+          'against_fp64': report, 'grad_norm_fp64': float(want['grad_norm']),
+          'diagnostics': {k: int(v) for k, v in runs['card'].items()
+                          if k.startswith('diag/')},
+          'tolerance': tol})
+    if failed:
+        raise AssertionError('tiny spconv8x train step: ' + '; '.join(failed))
+
+
+def phase_train_spconv(dev, n_steps, card, n_points=80000):
+    """Flagship spconv8x training steps (fp32 parameters, batch 1, the
+    LiDAR branch in bf16, MODEL.REMAT and REMAT_LADDER as configured) after
+    one warm-up, every kernel count set to 0 before the steps and read
+    after them; the capacity diagnostics of each step."""
+    import torch
+    import streamingflow_tpu_torch as P
+    from streamingflow_tpu_torch.data import flagship_config, make_batch
+    from streamingflow_tpu_torch.ops import patch_pool as PP
+    from streamingflow_tpu_torch.ops import winfuse as WF
+    cfg = flagship_config(backbone='spconv8x')
+    se = cfg.MODEL.SPARSE_ENCODER
+    trainer = P.build_trainer(cfg, device=dev, seed=0)
+    counters = {'winfuse': (WF, 'launches'),
+                'winfuse_dgrad': (WF, 'launches_dgrad'),
+                'winfuse_wgrad': (WF, 'launches_wgrad'),
+                'patch_pool': (PP, 'launches'),
+                'patch_pool_bwd': (PP, 'launches_bwd')}
+    # 9 submanifold convs (conv_input, two a block of stages 1 and 2), each
+    # run again in the recompute under REMAT_LADDER; no d feats for
+    # conv_input (its voxel features take no gradient)
+    n_subm = 1 + 2 * sum(len(c) - 1 for c in se.ENCODER_CHANNELS[:2])
+    remat = se.REMAT_LADDER or cfg.MODEL.REMAT
+    expect = {'winfuse': n_subm * (2 if remat else 1),
+              'winfuse_dgrad': n_subm - 1, 'winfuse_wgrad': n_subm,
+              'patch_pool': 1, 'patch_pool_bwd': 1}
+
+    def counts():
+        return {k: getattr(m, a) for k, (m, a) in counters.items()}
+
+    def step(seed):
+        batch = make_batch(cfg, 1, seed=seed, n_points=n_points)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = P.train_step(trainer, batch, generator=gen)
+        torch.cuda.synchronize()
+        return metrics, time.perf_counter() - t0
+
+    step(100)                                     # warm-up, not counted
+    torch.cuda.reset_peak_memory_stats()
+    for m, a in counters.values():
+        setattr(m, a, 0)
+    times, losses, per_step, diags = [], [], [], []
+    for seed in range(1, n_steps + 1):
+        before = counts()
+        metrics, dt = step(seed)
+        per_step.append({k: v - before[k] for k, v in counts().items()})
+        times.append(dt)
+        for k, v in metrics.items():
+            if not torch.isfinite(v).all():
+                raise AssertionError(f'spconv8x train step {seed}: {k} not '
+                                     f'finite')
+        diags.append({k[5:]: int(v) for k, v in metrics.items()
+                      if k.startswith('diag/')})
+        losses.append({k: float(v) for k, v in metrics.items()
+                       if not k.startswith('diag/')})
+    launches = counts()
+    if min(launches.values()) < 1:
+        raise AssertionError(f'spconv8x train: a kernel of the path did not '
+                             f'launch: {launches}')
+    if len(diags[0]) != 6:
+        raise AssertionError(f'spconv8x train: diagnostics {diags[0]}')
+    for k, v in trainer.module.state_dict().items():
+        if not torch.isfinite(v).all():
+            raise AssertionError(f'spconv8x train: {k} not finite')
+    emit({'phase': 'train_spconv', 'steps': n_steps,
+          'remat': cfg.MODEL.REMAT, 'remat_ladder': se.REMAT_LADDER,
+          'step_s': times, 'median_step_s': statistics.median(times),
+          'losses': losses, 'diagnostics': diags, 'launches': launches,
+          'per_step_launches': per_step, 'expected_per_step': expect,
+          'peak_mem_gib': torch.cuda.max_memory_allocated() / 2 ** 30,
+          'card': card})
+    return launches
+
+
 def _loader_times(cfg, n_workers, dev):
     """Host seconds a batch of the train loader at ``n_workers`` workers.
     The flagship tree has only a few train windows, so the loader reads
@@ -1719,11 +2075,14 @@ def main(argv=None):
     phase_patch_pool_bwd(cfg, dev, results)
     phase_train_tiny(dev)
     train_launches = phase_train(cfg, dev, args.train_steps, smi)
+    phase_train_tiny_spconv(dev)
+    spconv_launches = phase_train_spconv(dev, args.train_steps, smi)
     cli_launches = phase_cli(dev, smi)
 
     # launches: of the serving path's requests (bin_sum, patch_pool,
-    # winfuse), of the training steps (patch_pool_bwd; train_launches for the
-    # forward kernels), of the experiment tool (bin_sum_grouped)
+    # winfuse), of the training steps (patch_pool_bwd, and the spconv8x
+    # steps' winfuse_dgrad and winfuse_wgrad; train_launches for the forward
+    # kernels), of the experiment tool (bin_sum_grouped)
     kernels = [
         dict(name='bin_sum', route='cuda',
              source='streamingflow_tpu_torch/csrc/bin_sum.cu',
@@ -1741,7 +2100,19 @@ def main(argv=None):
         dict(name='winfuse', route='cuda',
              source='streamingflow_tpu_torch/csrc/winfuse.cu',
              replaces='streamingflow_tpu/ops/pallas_winfuse.py:153',
-             launches=launches['winfuse'], **results['winfuse']),
+             launches=launches['winfuse'],
+             train_launches=spconv_launches['winfuse'],
+             **results['winfuse']),
+        dict(name='winfuse_dgrad', route='cuda',
+             source='streamingflow_tpu_torch/csrc/winfuse.cu',
+             replaces='streamingflow_tpu/ops/pallas_winfuse.py:288',
+             launches=spconv_launches['winfuse_dgrad'],
+             **results['winfuse_dgrad']),
+        dict(name='winfuse_wgrad', route='cuda',
+             source='streamingflow_tpu_torch/csrc/winfuse_wgrad.cu',
+             replaces='streamingflow_tpu/ops/pallas_winfuse.py:288',
+             launches=spconv_launches['winfuse_wgrad'],
+             **results['winfuse_wgrad']),
         dict(name='bin_sum_grouped', route='cuda',
              source='streamingflow_tpu_torch/csrc/bin_sum_grouped.cu',
              replaces='tools/exp_bin_variants.py:26',

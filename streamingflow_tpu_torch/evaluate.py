@@ -24,6 +24,7 @@ import torch
 
 from .config import get_cfg
 from .device import resolve_device
+from .training.logging import capacity_warnings
 from .training.trainer import (LABEL_KEYS, build_trainer, eval_forward,
                                prepare_future_labels)
 
@@ -80,8 +81,9 @@ def forward_and_labels(trainer, batch: Dict, cfg
                                   Dict[str, np.ndarray], float]:
     """The eval forward of a loader batch on the trainer's device, and the
     batch's labels warped into the present frame on the host.  Returns
-    (labels, outputs) as float32/int numpy, and the forward's seconds
-    (host clock, the device synchronised)."""
+    (labels, outputs) as float32/int numpy (the forward's capacity
+    diagnostics, where it has any, as ints under ``'diagnostics'``), and
+    the forward's seconds (host clock, the device synchronised)."""
     dev = trainer.device
     labels = prepare_future_labels(
         {k: batch[k] for k in LABEL_KEYS if k in batch}, cfg)
@@ -94,6 +96,9 @@ def forward_and_labels(trainer, batch: Dict, cfg
     seconds = time.perf_counter() - t0
     out = {k: v.float().cpu().numpy() for k, v in output.items()
            if torch.is_tensor(v)}
+    if 'diagnostics' in output:
+        out['diagnostics'] = {k: int(v)
+                              for k, v in output['diagnostics'].items()}
     lab = {k: v.cpu().numpy() for k, v in labels.items()
            if torch.is_tensor(v)}
     return lab, out, seconds
@@ -146,6 +151,8 @@ def run_eval(cfg, ckpt, short_interval: bool = False, plot_dir=None,
                     dim=1)
             labels, output, seconds = forward_and_labels(trainer, batch, cfg)
             t_fwd.append(seconds)
+            for line in capacity_warnings(output.get('diagnostics', {})):
+                print(line, flush=True)
 
             seg_pred = np.argmax(output['segmentation'], axis=-1)
             seg_label = labels['segmentation'][..., 0]

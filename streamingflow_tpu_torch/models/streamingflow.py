@@ -77,8 +77,7 @@ class StreamingFlow(nn.Module):
         if self.use_lidar:
             se = cfg.MODEL.SPARSE_ENCODER
             # any backbone but pillar8x is the sparse encoder, as in the
-            # JAX package (eval mode only: SPARSE_ENCODER.REMAT_LADDER only
-            # matters to a backward pass)
+            # JAX package
             if cfg.MODEL.LIDAR.BACKBONE == 'pillar8x':
                 self.lidar_encoder = PillarBEVEncoder(
                     se, tile_sorted=cfg.MODEL.LIDAR.TILE_SORTED_POINTS)
@@ -125,6 +124,13 @@ class StreamingFlow(nn.Module):
         if self._remat_on():
             return remat(module, module, self._generator, *args)
         return module(*args)
+
+    def diagnostics(self) -> Dict[str, torch.Tensor]:
+        """The last forward's sown diagnostics (the JAX package's
+        'diagnostics' collection): the spconv8x encoder's capacity counters,
+        int32 device scalars; empty on the other backbones."""
+        return dict(getattr(getattr(self, 'lidar_encoder', None),
+                            'last_diagnostics', {}))
 
     # ---------------------------------------------------------------- camera
     def calculate_birds_eye_view_features(self, image, intrinsics,
@@ -193,6 +199,12 @@ class StreamingFlow(nn.Module):
                 # rematerialised ladder
                 feat = remat(enc.ladder, enc, self._generator,
                              enc.pillar_features(points))
+            elif self._remat_on() and not enc.cfg.REMAT_LADDER:
+                # spconv8x: the geometry (voxelize, maps, taps, occupancy)
+                # takes no gradient and runs once, outside; under
+                # REMAT_LADDER the encoder checkpoints each block itself
+                geo = enc.geometry(points)
+                feat = remat(enc.ladder, enc, self._generator, geo.feats, geo)
             else:
                 feat = enc(points)                       # (B, T, C, X, Y)
             # SPARSE_ENCODER.COMPUTE_DTYPE may leave the branch narrower

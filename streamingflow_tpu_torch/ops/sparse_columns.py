@@ -49,7 +49,8 @@ def stack_sets(sets) -> ColumnSet:
 
 
 def cloud(cs: ColumnSet, i: int) -> ColumnSet:
-    return ColumnSet(*(f[i] for f in cs))
+    """Cloud i of stacked sets (feats may be None: a set's geometry)."""
+    return ColumnSet(*(None if f is None else f[i] for f in cs))
 
 
 def _first_of_runs(sorted_ids: torch.Tensor) -> torch.Tensor:
@@ -220,19 +221,28 @@ def z_windows(rows: torch.Tensor, nz_out: int, kz: int,
     return rows.unfold(1, kz, sz)[:, :nz_out]
 
 
-def sparse_conv_columns(cs: ColumnSet, weights: torch.Tensor, kernel, stride,
-                        padding, shape, cap: int
-                        ) -> Tuple[ColumnSet, Tuple[int, int, int]]:
-    """Strided sparse conv of one cloud: new active columns, outputs at
-    every site an input touches (SparseConv3d semantics), dilated zmask.
-    weights (prod(kernel), Cin, Cout), x-major taps.  Outputs are not
-    masked (the masked BN after it masks them); each tap is multiplied and
-    summed in the features' type, as the JAX package sums them."""
+class StridedGeo(NamedTuple):
+    """The geometry of a strided column conv: src (kx*ky, V_out) long, the
+    input row under each in-plane tap of every output column (the input's
+    row count where there is none); out, the output ColumnSet without
+    features (feats None); shape, the output grid."""
+    src: torch.Tensor
+    out: ColumnSet
+    shape: Tuple[int, int, int]
+
+
+def strided_geometry(cs: ColumnSet, kernel, stride, padding, shape,
+                     cap: int) -> StridedGeo:
+    """The part of :func:`sparse_conv_columns` that does not touch the
+    features (no gradient): the new active columns, the source row of each
+    tap and the dilated zmask (SparseConv3d semantics).  cs.feats is not
+    read."""
     nx, ny, nz = shape
     kz, sz, pz = kernel[2], stride[2], padding[2]
     out_shape = conv_out_shape(shape, kernel, stride, padding)
     nz_out = out_shape[2]
-    dev = cs.feats.device
+    dev = cs.col_ids.device
+    n_rows = cs.col_ids.shape[0]
     ztv = torch.as_tensor(z_touches_valid(nz, nz_out, kz, sz, pz), device=dev)
     touches = (cs.zmask & ztv).any(-1)
     out_ids, out_coords, out_mask = gen_output_columns(
@@ -256,40 +266,96 @@ def sparse_conv_columns(cs: ColumnSet, weights: torch.Tensor, kernel, stride,
             inbs.append(inb)
     pos = torch.stack(poss)
     found = torch.stack(inbs) & (pos >= 0)
-    src = torch.where(found, pos, cs.feats.shape[0]).long()
+    src = torch.where(found, pos, n_rows).long()
 
-    # tap by tap, each a (V, nz_out, Cin*kz) x (Cin*kz, Cout) product,
-    # summed in the features' type as the JAX package sums them
-    cin, cout = weights.shape[1], weights.shape[2]
+    # an output site is active where any contributing input site is
     length = (nz_out - 1) * sz + kz
-    f = padded_rows(cs.feats, nz, pz, length)
     zm = padded_rows(cs.zmask, nz, pz, length)[..., 0]
     zm_out = torch.zeros(cap, nz_out, dtype=torch.bool, device=dev)
+    for k in range(src.shape[0]):
+        zm_out |= z_windows(zm.index_select(0, src[k]), nz_out, kz,
+                            sz).any(-1)
+    zm_out &= out_mask[:, None]
+    return StridedGeo(src, ColumnSet(None, out_ids, out_coords, out_mask,
+                                     zm_out), out_shape)
+
+
+def strided_features(feats: torch.Tensor, src: torch.Tensor,
+                     weights: torch.Tensor, kernel, stride, padding,
+                     nz: int, nz_out: int) -> torch.Tensor:
+    """The features of a strided column conv: rows feats (R, nz*Cin), src
+    (kx*ky, V) rows of feats (R where none; the clouds of a batch may be
+    stacked, each cloud's rows offset) -> (V, nz_out*Cout).  Tap by tap
+    one (V, nz_out, Cin*kz) x (Cin*kz, Cout) product, multiplied and summed
+    in the features' type as the JAX package sums them.  Not masked (the
+    masked BN after it masks)."""
+    kz, sz, pz = kernel[2], stride[2], padding[2]
+    cin, cout = weights.shape[1], weights.shape[2]
+    v = src.shape[1]
+    length = (nz_out - 1) * sz + kz
+    f = padded_rows(feats, nz, pz, length)
     out = None
     for k in range(src.shape[0]):
         x = z_windows(f.index_select(0, src[k]), nz_out, kz, sz)
         wk = weights[k * kz:(k + 1) * kz].permute(1, 0, 2)  # (Cin, kz, Cout)
-        y = x.reshape(cap, nz_out, cin * kz) @ wk.reshape(
+        y = x.reshape(v, nz_out, cin * kz) @ wk.reshape(
             cin * kz, cout).to(x.dtype)
         out = y if out is None else out + y
-        # an output site is active where any contributing input site is
-        zm_out |= z_windows(zm.index_select(0, src[k]), nz_out, kz,
-                            sz).any(-1)
-    out = out.reshape(cap, nz_out * cout)
-    zm_out &= out_mask[:, None]
-    return (ColumnSet(out, out_ids, out_coords, out_mask, zm_out),
-            out_shape)
+    return out.reshape(v, nz_out * cout)
+
+
+def sparse_conv_columns(cs: ColumnSet, weights: torch.Tensor, kernel, stride,
+                        padding, shape, cap: int
+                        ) -> Tuple[ColumnSet, Tuple[int, int, int]]:
+    """Strided sparse conv of one cloud: new active columns, outputs at
+    every site an input touches (SparseConv3d semantics), dilated zmask.
+    weights (prod(kernel), Cin, Cout), x-major taps.  Outputs are not
+    masked (the masked BN after it masks them); each tap is multiplied and
+    summed in the features' type, as the JAX package sums them.
+    Differentiable in feats and weights through plain autograd (the JAX
+    package differentiates it outside Pallas too)."""
+    geo = strided_geometry(cs, kernel, stride, padding, shape, cap)
+    out = strided_features(cs.feats, geo.src, weights, kernel, stride,
+                           padding, shape[2], geo.shape[2])
+    return geo.out._replace(feats=out), geo.shape
+
+
+def dense_cells(col_ids: torch.Tensor, col_mask: torch.Tensor,
+                zmask: torch.Tensor, shape: Tuple[int, int, int]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The geometry of the dense-tail entry of stacked clouds (N, V): the
+    flat cell of each column slot, (N*V,) long into N*(nx*ny + 1) cells
+    (cloud i's cells offset by i*(nx*ny + 1), empty slots on the cloud's
+    last, trash cell), and the (N, nx, ny, nz) occupancy."""
+    nx, ny, nz = shape
+    n = col_ids.shape[0]
+    cells = nx * ny + 1
+    idx = torch.where(col_mask, col_ids.long(), nx * ny) + \
+        cells * torch.arange(n, device=col_ids.device)[:, None]
+    zm = torch.zeros(n * cells, nz, dtype=torch.bool, device=idx.device)
+    zm[idx.reshape(-1)] = (zmask & col_mask[..., None]).reshape(-1, nz)
+    return idx.reshape(-1), zm.view(n, cells, nz)[:, :nx * ny].reshape(
+        n, nx, ny, nz)
+
+
+def dense_features(feats: torch.Tensor, zmask: torch.Tensor,
+                   idx: torch.Tensor, shape: Tuple[int, int, int],
+                   C: int) -> torch.Tensor:
+    """Stacked clouds' column features (N, V, nz*C) -> dense (N, nx, ny, nz,
+    C), zero where inactive, at the cells of :func:`dense_cells`."""
+    nx, ny, nz = shape
+    n = feats.shape[0]
+    cells = nx * ny + 1
+    dense = feats.new_zeros(n * cells, feats.shape[-1])
+    dense[idx] = mask_fused(feats, zmask).reshape(idx.shape[0], -1)
+    return dense.view(n, cells, -1)[:, :nx * ny].reshape(n, nx, ny, nz, C)
 
 
 def columns_to_dense(cs: ColumnSet, shape: Tuple[int, int, int], C: int
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One cloud's columns -> dense (nx, ny, nz, C) features (zero where
     inactive) and (nx, ny, nz) occupancy: the entry to the dense tail."""
-    nx, ny, nz = shape
-    idx = torch.where(cs.col_mask, cs.col_ids.long(), nx * ny)
-    dense = cs.feats.new_zeros(nx * ny + 1, cs.feats.shape[-1])
-    dense[idx] = mask_fused(cs.feats, cs.zmask)
-    zm = torch.zeros(nx * ny + 1, nz, dtype=torch.bool, device=idx.device)
-    zm[idx] = cs.zmask & cs.col_mask[:, None]
-    return (dense[:nx * ny].reshape(nx, ny, nz, C),
-            zm[:nx * ny].reshape(nx, ny, nz))
+    idx, occ = dense_cells(cs.col_ids[None], cs.col_mask[None],
+                           cs.zmask[None], shape)
+    return dense_features(cs.feats[None], cs.zmask[None], idx, shape,
+                          C)[0], occ[0]

@@ -2,7 +2,7 @@
 
     python3 -m streamingflow_tpu_torch.tools.profile_forward \
         [--backbone pillar8x|spconv8x] [--requests 5] [--train] \
-        [--out runs/profile_forward.json]
+        [--remat-ladder on|off] [--out runs/profile_forward.json]
 
 Builds the flagship model (data.flagship_config: bench.py's full_cfg, on
 the given LiDAR backbone) in bf16 with random weights from a seed, answers
@@ -20,11 +20,21 @@ line with:
   busy_share    device kernel time (torch.profiler) over wall time
   top_kernels   the kernels with the most device time, ms per request
 
-With ``--train`` (pillar8x only) the requests are training steps
+With ``--train`` the requests are training steps
 (training/trainer.py::train_step, fp32 parameters, batch 1, MODEL.REMAT as
 configured): ``stages_ms`` then holds the stream time of the forward (stages
 as above, first pass only), of the loss + backward (with the rematerialised
-sub-modules' second pass) and of the optimizer.
+sub-modules' second pass) and of the optimizer.  On spconv8x also
+``ladder_ms``: the LiDAR ladder's forward (its modules' first pass and the
+geometry), its recompute under REMAT_LADDER (the modules' second pass),
+K3's forward (its launches, recompute included), d feats and d weights
+(CUDA events around each wrapper call; the recompute runs each checkpoint to
+its end, not to torch.utils.checkpoint's early stop), and the strided
+convs' backward
+(down1 and down2 timed alone on the last step's inputs: forward and
+backward less forward); ``--remat-ladder off`` turns the per-block
+checkpoints off (MODEL.REMAT then checkpoints the ladder whole) to read
+the peak memory without them.
 
 Needs a CUDA card; raises without one.
 """
@@ -38,6 +48,7 @@ import time
 from collections import defaultdict
 
 import torch
+import torch.utils.checkpoint
 
 STAGES = ('encoder', 'temporal_model', 'lidar_encoder', 'lidar_reduce',
           'temporal_model_lidar', 'future_prediction', 'decoder')
@@ -50,6 +61,20 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+def _event_ms(fn, reps=3):
+    """Mean stream time of fn over reps runs after one warm-up (CUDA
+    events)."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def main(argv=None):
     import streamingflow_tpu_torch as P
     from streamingflow_tpu_torch.data import flagship_config, make_batch
@@ -59,18 +84,17 @@ def main(argv=None):
                     choices=('pillar8x', 'spconv8x'))
     ap.add_argument('--requests', type=int, default=5)
     ap.add_argument('--train', action='store_true')
+    ap.add_argument('--remat-ladder', choices=('on', 'off'), default='on')
     ap.add_argument('--out', default=os.path.join('runs',
                                                   'profile_forward.json'))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('profile_forward: CUDA is not available')
-    if args.train and args.backbone != 'pillar8x':
-        raise SystemExit('profile_forward: --train takes pillar8x only (the '
-                         'spconv8x backbone has no train mode yet)')
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device('cuda', 0)
     cfg = flagship_config(backbone=args.backbone)
+    cfg.MODEL.SPARSE_ENCODER.REMAT_LADDER = args.remat_ladder == 'on'
     if args.train:
         trainer = P.build_trainer(cfg, device=dev, seed=0)
         model = trainer.module.model
@@ -78,6 +102,11 @@ def main(argv=None):
         model = P.build_model(cfg, device=dev, dtype=torch.bfloat16, seed=0)
 
     marks = defaultdict(list)          # stage -> [(start, end) events]
+
+    def span(a, b):
+        """A pair's stream time; 0 for a pair without an end (a module
+        left by an exception)."""
+        return 0.0 if b is None else a.elapsed_time(b)
 
     def hook_pair(name):
         def pre(_module, _inputs):
@@ -122,6 +151,26 @@ def main(argv=None):
         trainer.optimizer.register_step_post_hook(
             lambda *_: post(None, None, None))
 
+    ladder = args.train and args.backbone == 'spconv8x'
+    inputs = {}
+    if ladder:
+        from streamingflow_tpu_torch.ops import winfuse as WF
+
+        def timed(name, fn):
+            def run(*a, **kw):
+                pre, post = hook_pair(name)
+                pre(None, None)
+                out = fn(*a, **kw)
+                post(None, None, None)
+                return out
+            return run
+        WF._conv = timed('k3_forward', WF._conv)
+        WF.subm_conv_dgrad = timed('k3_dgrad', WF.subm_conv_dgrad)
+        WF.subm_conv_wgrad = timed('k3_wgrad', WF.subm_conv_wgrad)
+        for name in ('down1', 'down2'):
+            getattr(model.lidar_encoder, name).register_forward_pre_hook(
+                lambda mod, a, name=name: inputs.__setitem__(name, a))
+
     def request(seed):
         batch = make_batch(cfg, 1, seed=seed, n_points=80000)
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -130,7 +179,11 @@ def main(argv=None):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             pre(None, None)
-            P.train_step(trainer, batch, generator=gen)
+            # the recompute runs each checkpointed module to its end (by
+            # default it stops once it has what the backward needs, and its
+            # modules' end events never fire)
+            with torch.utils.checkpoint.set_checkpoint_early_stop(False):
+                P.train_step(trainer, batch, generator=gen)
             post(None, None, None)
             torch.cuda.synchronize()
             return time.perf_counter() - t0
@@ -155,7 +208,7 @@ def main(argv=None):
         # the backward), and what is left of the step after the forward and
         # the optimizer is the loss and the backward
         per = {k: len(v) // n for k, v in marks.items()}
-        stages = {k: sum(a.elapsed_time(b) for i, (a, b) in enumerate(v)
+        stages = {k: sum(span(a, b) for i, (a, b) in enumerate(v)
                          if k in ('step', 'forward', 'optimizer',
                                   'camera_lift_pool_total')
                          or i % per[k] < (per[k] + 1) // 2) / n
@@ -163,7 +216,7 @@ def main(argv=None):
         stages['loss_backward'] = (stages['step'] - stages['forward']
                                    - stages['optimizer'])
     else:
-        stages = {k: sum(a.elapsed_time(b) for a, b in v) / n
+        stages = {k: sum(span(a, b) for a, b in v) / n
                   for k, v in marks.items()}
     # the lift + pool is the camera BEV stage without its encoder
     if 'camera_lift_pool_total' in stages:
@@ -171,8 +224,37 @@ def main(argv=None):
                                       - stages.get('encoder', 0.0))
     children = [v for k, v in stages.items()
                 if k.startswith('lidar_encoder.')]
-    if children:
+    if children and 'lidar_encoder' in stages:
         stages['lidar_encoder.other'] = stages['lidar_encoder'] - sum(children)
+    if ladder:
+        enc_children = [k for k in marks if k.startswith('lidar_encoder.')]
+        first = sum(stages[k] for k in enc_children)
+        both = sum(sum(span(a, b) for a, b in marks[k]) / n
+                   for k in enc_children)
+        # the encoder's own hooks do not fire when MODEL.REMAT checkpoints
+        # the ladder whole (REMAT_LADDER off): then its modules' first pass
+        ladder_ms = {'forward': stages.get('lidar_encoder', first),
+                     'recompute': both - first,
+                     **{k: sum(span(a, b) for a, b in marks[k]) / n
+                        for k in ('k3_forward', 'k3_dgrad', 'k3_wgrad')},
+                     'launches': {k: len(marks[k]) // n for k in
+                                  ('k3_forward', 'k3_dgrad', 'k3_wgrad')}}
+        for name, (feats, nz, geo) in inputs.items():
+            down = getattr(model.lidar_encoder, name)
+            feats = feats.detach().requires_grad_()
+            cot = torch.randn_like(down(feats, nz, geo))
+
+            def fwd():
+                return down(feats, nz, geo)
+
+            def fwd_bwd():
+                down(feats, nz, geo).backward(cot)
+            fwd_ms, both_ms = (_event_ms(f) for f in (fwd, fwd_bwd))
+            ladder_ms[f'{name}_forward'] = fwd_ms
+            ladder_ms[f'{name}_backward'] = both_ms - fwd_ms
+        for k in list(stages):
+            if k.startswith('k3_'):
+                stages.pop(k)
     # device-side events only (kernels, copies): the host ops that launched
     # them carry the same time again
     kernels = [(e.key, _device_us(e)) for e in prof.key_averages()
@@ -194,6 +276,9 @@ def main(argv=None):
                         for k, us in top],
         'peak_mem_gib': torch.cuda.max_memory_allocated() / 2 ** 30,
     }
+    if ladder:
+        result['remat_ladder'] = args.remat_ladder
+        result['ladder_ms'] = ladder_ms
     os.makedirs(os.path.dirname(args.out) or '.', exist_ok=True)
     with open(args.out, 'w') as f:
         json.dump(result, f, indent=1)

@@ -27,7 +27,8 @@ from .data.dataloader import prepare_dataloaders
 from .device import resolve_device
 from .evaluate import OUTPUT_KEYS, forward_and_labels
 from .training.checkpoint import CheckpointManager, warm_start
-from .training.logging import MetricsLogger, SimpleProfiler
+from .training.logging import (MetricsLogger, SimpleProfiler,
+                               capacity_warnings)
 from .training.trainer import build_trainer, train_step
 
 SEED = 42
@@ -127,6 +128,11 @@ def main(argv: Optional[list] = None) -> Dict:
                     print(f'epoch {epoch} step {global_step} '
                           f"loss {values['total_loss']:.4f} "
                           f'({time.time() - t0:.1f}s)', flush=True)
+                    # the diagnostics are read here only, at logging steps
+                    for line in capacity_warnings(
+                            {k[5:]: v for k, v in values.items()
+                             if k.startswith('diag/')}, global_step):
+                        print(line, flush=True)
                 if cfg.VIS_INTERVAL and global_step % cfg.VIS_INTERVAL == 0:
                     # BEV prediction video (reference trainer.py:396-409)
                     from .utils.visualisation import visualise_output

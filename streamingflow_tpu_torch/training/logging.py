@@ -19,7 +19,7 @@ import os
 import time
 from collections import defaultdict
 from contextlib import contextmanager
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -134,3 +134,17 @@ def device_trace(log_dir: Optional[str]):
     with profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(log_dir, 'trace.json'))
+
+
+def capacity_warnings(diagnostics: Dict[str, float],
+                      step: Optional[int] = None) -> List[str]:
+    """The warning lines of the sparse engine's capacity events in a
+    forward's diagnostics ({name: value}, values already on the host): a
+    site or column dropped to a static cap is data lost, so it is said, not
+    passed over (the JAX package's train.py and evaluate.py print the
+    same)."""
+    at = '' if step is None else f' at step {step}'
+    return [f'WARNING: sparse-engine capacity event {k} = {int(v)}{at} - '
+            f'raise MODEL.SPARSE_ENCODER caps (COLUMN_CAPS, MAX_VOXELS)'
+            for k, v in diagnostics.items()
+            if ('dropped' in k or 'cap_hit' in k) and v > 0]

@@ -251,8 +251,10 @@ def train_step(trainer: Trainer, batch,
     """One optimisation step on ``batch`` (numpy or tensors, as
     data.make_batch lays it out).  ``generator`` (on the trainer's device)
     draws the dropout masks and the GRU-ODE's noise.  Returns the loss dict
-    with ``total_loss`` and the gradient norm before clipping
-    (``grad_norm``), detached, on the device."""
+    with ``total_loss``, the gradient norm before clipping (``grad_norm``)
+    and ``diag/<name>`` for each of the forward's capacity diagnostics (the
+    spconv8x encoder's, as the JAX step returns them), detached, on the
+    device: nothing is read to the host."""
     cfg, module, dev = trainer.cfg, trainer.module, trainer.device
     labels = prepare_future_labels(
         {k: to_tensor(batch[k], dev) for k in LABEL_KEYS if k in batch}, cfg)
@@ -276,16 +278,24 @@ def train_step(trainer: Trainer, batch,
     trainer.optimizer.step()
     trainer.step += 1
     metrics = {'total_loss': total, **loss_dict, 'grad_norm': grad_norm}
+    for k, v in module.model.diagnostics().items():
+        metrics[f'diag/{k}'] = v
     return {k: v.detach() for k, v in metrics.items()}
 
 
 def eval_forward(trainer: Trainer, batch,
                  generator: Optional[torch.Generator] = None
                  ) -> Dict[str, Optional[torch.Tensor]]:
-    """Inference forward pass (running BN statistics, no dropout)."""
+    """Inference forward pass (running BN statistics, no dropout).  The
+    forward's capacity diagnostics, where it has any (spconv8x), are under
+    ``output['diagnostics']``, {name: int32 device scalar}, as the JAX
+    package's eval_forward returns them."""
     model_args = batch_to_model_args(batch, trainer.cfg,
                                      device=trainer.device)
     trainer.module.eval()
     with torch.no_grad():
         output, _ = trainer.module(**model_args, generator=generator)
+    diag = trainer.module.model.diagnostics()
+    if diag:
+        output['diagnostics'] = diag
     return output

@@ -34,3 +34,9 @@ jax.config.update('jax_compilation_cache_dir',
                       os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                       '.jax_cache')))
 jax.config.update('jax_persistent_cache_min_compile_time_secs', 2.0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        'markers', 'slow: a test of minutes that tier 1 does not run '
+        "(-m 'not slow'); run it with -m slow")

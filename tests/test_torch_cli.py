@@ -17,6 +17,8 @@ import os
 import re
 import sys
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
@@ -194,26 +196,39 @@ def _seg_panels(plot_dir, h, w):
     return np.stack(masks)
 
 
+def _random_train_state(cfg, batch, seed):
+    """The train state of JT.create_train_state (its optimizer chain, whose
+    state the JAX evaluate restores into) with random variables from
+    eval_shape in place of its compiled init."""
+    module = JT.StreamingFlowTrainModule(cfg)
+    variables = init_jax(module, **JT.batch_to_model_args(batch, cfg),
+                         seed=seed)
+    tx = optax.chain(optax.clip_by_global_norm(cfg.GRAD_NORM_CLIP),
+                     optax.add_decayed_weights(cfg.OPTIMIZER.WEIGHT_DECAY),
+                     optax.adam(cfg.OPTIMIZER.LR))
+    variables = jax.tree.map(jnp.asarray, variables)
+    return JT.TrainState.create(
+        apply_fn=module.apply, params=variables['params'], tx=tx,
+        batch_stats=variables['batch_stats'])
+
+
 def test_jax_weights_give_the_jax_evaluate(env, tmp_path, monkeypatch,
                                            capsys):
     import evaluate as jax_evaluate
     write_cfg, _ = env
     jcfg = jload_cfg(write_cfg('jax_weights'))
-    module = JT.StreamingFlowTrainModule(jcfg)
-    variables = init_jax(module, **JT.batch_to_model_args(
-        jnp_tree(make_batch(jcfg, 1, seed=0, n_points=64)), jcfg), seed=3)
-    # the optimizer chain of JT.create_train_state, whose state the JAX
-    # evaluate restores into
-    tx = optax.chain(optax.clip_by_global_norm(jcfg.GRAD_NORM_CLIP),
-                     optax.add_decayed_weights(jcfg.OPTIMIZER.WEIGHT_DECAY),
-                     optax.adam(jcfg.OPTIMIZER.LR))
-    state = JT.TrainState.create(
-        apply_fn=module.apply, params=variables['params'], tx=tx,
-        batch_stats=variables['batch_stats'])
+    state = _random_train_state(
+        jcfg, jnp_tree(make_batch(jcfg, 1, seed=0, n_points=64)), 3)
     jdir = str(tmp_path / 'orbax')
     jckpt = JCheckpointManager(jdir)
     jckpt.save(1, state, jcfg)
 
+    # the JAX evaluate builds its state only to restore the checkpoint over
+    # it: the template comes from eval_shape, not from a compile of the
+    # model's init (the values are the checkpoint's either way)
+    monkeypatch.setattr(JT, 'create_train_state',
+                        lambda cfg, rng, batch: _random_train_state(
+                            cfg, batch, 0))
     monkeypatch.setattr(sys, 'argv', [
         'evaluate.py', '--checkpoint', jdir, '--plot', str(tmp_path / 'jp')])
     jax_evaluate.main()

@@ -86,22 +86,23 @@ def _eager_pillar_features(cfg, points):
                           layout='cf') for i in range(flat.shape[0])]
 
 
-def _jax_step(x64):
+def _jax_step(x64, cfg=None, n_points=2048):
     """The body of make_train_step's ``train_step`` on random variables:
-    losses, gradients, clipped gradients, new BN statistics, new params.
-    ``x64``: variables and images in float64, pillar features op by op."""
+    losses, gradients, clipped gradients, new BN statistics, new params,
+    the sown diagnostics.  ``x64``: variables and images in float64, pillar
+    features (pillar8x) op by op.  ``cfg``: _cfg() unless given."""
     patch = pytest.MonkeyPatch()
     patch.setattr(flax.linen.Dropout, '__call__',
                   lambda self, inputs, deterministic=None, rng=None: inputs)
     patch.setattr(jeff, '_DROP_CONNECT_RATE', 0.0)
     try:
-        cfg = _cfg()
-        batch = make_batch(cfg, 1, seed=5, n_points=2048)
+        cfg = _cfg() if cfg is None else cfg
+        batch = make_batch(cfg, 1, seed=5, n_points=n_points)
         module = JT.StreamingFlowTrainModule(cfg)
         variables = init_jax(module, **JT.batch_to_model_args(
             jnp_tree(batch), cfg))
         key = jax.random.PRNGKey(0)
-        if x64:
+        if x64 and cfg.MODEL.LIDAR.BACKBONE == 'pillar8x':
             feats = _eager_pillar_features(cfg, batch['points'])
             calls = itertools.count()
             patch.setattr(jpe, 'pillarize', lambda *a, **kw:
@@ -129,6 +130,7 @@ def _jax_step(x64):
             return dict(total=total, losses=loss_dict, grads=grads,
                         clipped=clipped, norm=optax.global_norm(grads),
                         stats=updates['batch_stats'],
+                        diag=updates.get('diagnostics', {}),
                         params=optax.apply_updates(params, upd))
 
         with jax.enable_x64(x64), jax.default_matmul_precision('highest'):
