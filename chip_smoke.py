@@ -11,7 +11,8 @@ the CUDA toolkit.  Phases, each printing one JSON line:
 
   1. device      the card, and nvidia-smi's name and power limit
   2. build       nvcc of every csrc/*.cu (and the pool's loads-only
-                 variant), all at once, with its time
+                 variant and the d weights' two ablations), all at once,
+                 with its time
   3. bin_sum     kernel vs plain version at flagship shapes (one 80k-point
                  cloud, 1600^2 pillar grid, pillar epilogue, bf16 out,
                  presorted and unsorted; raw fp32 sums too; a hot trash bin
@@ -41,7 +42,12 @@ the CUDA toolkit.  Phases, each printing one JSON line:
                  stage 2 in bf16 and fp32 and over the forced-drop plan:
                  d feats (the forward's kernels over the reversed map) and
                  d weights (csrc/winfuse_wgrad.cu) vs the plain forward's
-                 autograd over the full found, with times and bounds
+                 autograd over the full found, with times and bounds, and
+                 conv_input's d weights (Cin 5); d weights launched three
+                 times a case for equal bits, the bf16 d weights' ptxas
+                 report free of spills, beside it torch.matmul of the
+                 compacted, pre-gathered products alone (gemm_alone_ms),
+                 and its time split by two ablations (kernel_parts)
   6. tiny        a tiny camera+LiDAR forward on the card (kernels) vs the
                  same weights on the CPU (plain versions)
   7. tiny_spconv the same on the spconv8x backbone ('winfuse')
@@ -821,13 +827,74 @@ def _k3_bwd_ops(geo, zmask, nz, cin, cout):
     return 2 * cin * cout * int((per_col[None] * geo.grad_found).sum())
 
 
-def _winfuse_bwd_case(name, feats, geo, w, nz, zmask, reps=5):
+def _wgrad_gemm_alone(feats, geo, g, nz):
+    """A floor for d weights' products alone, not a port of the function:
+    ``torch.matmul`` of the 9 taps' compacted A_k^T (3*Cin x items) by B
+    (items x Cout), the items being the cotangent's nonzero (column, z)
+    rows and A_k[item, (tz, i)] = feats[src[k, v], zo + tz - 1, i] (zero
+    where the tap is not found or z leaves the column), all gathered
+    outside the timed call.  (ms, items)."""
+    import torch
+    from streamingflow_tpu_torch.ops import sparse_columns as SC
+    rows, cout = geo.nbr.shape[1], g.shape[1] // nz
+    cin = feats.shape[1] // nz
+    act = g.reshape(rows * nz, cout).ne(0).any(-1).nonzero().squeeze(1)
+    v, zo = act // nz, act % nz
+    # (R + 1, nz + 2, Cin): zero z halo, row R zeros for a tap not found
+    f = SC.padded_rows(feats, nz, 1, nz + 2)
+    src = torch.where(geo.grad_found, geo.nbr, feats.shape[0]).long()
+    # staged row zo + tz of the source column is input z zo + tz - 1
+    z3 = zo[:, None] + torch.arange(3, device=g.device)
+    a_t = torch.stack([f[src[k, v][:, None], z3].reshape(-1, 3 * cin).t()
+                       for k in range(9)]).contiguous()
+    b = g.reshape(rows * nz, cout)[act].contiguous()
+    del f
+    return cuda_ms(lambda: torch.matmul(a_t, b)), int(act.numel())
+
+
+# ablations of the bf16 d weights (csrc/winfuse_wgrad.cu), timed beside it
+WGRAD_PARTS = {'lists_only_ms': ('WINFUSE_WGRAD_PART=1',),
+               'no_gather_ms': ('WINFUSE_WGRAD_PART=2',)}
+
+
+def _wgrad_parts_ms(feats, geo, g, nz):
+    """The bf16 d-weights kernel built as its ablations (WGRAD_PARTS: the
+    cotangent rows and lists alone; the steps without their row gathers),
+    each launched on the wrapper's prepared inputs: CUDA-event ms.  Their
+    results are wrong by design and are not read."""
+    import torch
+    from streamingflow_tpu_torch.ops import cuda_lib
+    from streamingflow_tpu_torch.ops import winfuse as WF
+    rows_n, dev = geo.nbr.shape[1], feats.device
+    cin, cout = feats.shape[1] // nz, g.shape[1] // nz
+    rows, cp, g_rows, np_ = WF.wgrad_rows(feats, g, nz)
+    src = torch.where(geo.grad_found, geo.nbr, -1).contiguous()
+    parts = WF.WGRAD_BLOCKS_PER_SM * \
+        torch.cuda.get_device_properties(dev).multi_processor_count
+    scratch = torch.empty(parts, 27 * cin * cout, device=dev)
+    out = torch.empty(27, cin, cout, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    times = {}
+    for key, defines in WGRAD_PARTS.items():
+        fn = cuda_lib.kernel('winfuse_wgrad', 'sf_winfuse_wgrad_bf16',
+                             defines)
+        times[key] = cuda_ms(lambda: cuda_lib.check('winfuse_wgrad', fn(
+            rows.data_ptr(), src.data_ptr(), g_rows.data_ptr(),
+            scratch.data_ptr(), parts, out.data_ptr(), rows_n, nz, cp, cin,
+            np_, cout, stream)))
+    return times
+
+
+def _winfuse_bwd_case(name, feats, geo, w, nz, zmask, reps=5,
+                      dgrad=True):
     """K3's backward on the card against the plain forward's autograd over
     the map's full found (the JAX ``_winfuse_bwd``): d feats through the
     forward's kernels over the reversed map (``subm_conv_dgrad``), d weights
     through csrc/winfuse_wgrad.cu (``subm_conv_wgrad``), both direct and
     through the autograd Function (forward over ``geo.found``, the kept
-    taps), for a random cotangent zero at the inactive sites.  Tolerances:
+    taps), for a random cotangent zero at the inactive sites; d weights
+    launched twice more, for equal bits.  ``dgrad=False`` (conv_input,
+    whose voxel features take no gradient): d weights only.  Tolerances:
     d feats as the forward's (fp32 1e-5 of the scale; bf16 2^-7, the
     weights rounded to bf16 by the kernel and the result rounded once);
     d weights against the plain version's sums in fp64 (the exact value of
@@ -843,37 +910,44 @@ def _winfuse_bwd_case(name, feats, geo, w, nz, zmask, reps=5):
     g = (torch.randn(rows, nz, cout, device=dev, generator=gen) * zm).to(
         feats.dtype).reshape(rows, nz * cout)
     full, src_t = geo.grad_found, geo.src_t
-    x = feats.clone().requires_grad_()
+    x = feats.clone().requires_grad_(dgrad)
     wp = w.detach().clone().requires_grad_()
     WF.subm_conv_plain(x, geo.nbr, full, wp, nz).backward(g)
     want_df, want_dw = x.grad, wp.grad
     counts = (WF.launches_dgrad, WF.launches_wgrad)
-    got_df = WF.subm_conv_dgrad(g, src_t, w, nz)
+    got_df = WF.subm_conv_dgrad(g, src_t, w, nz) if dgrad else None
     got_dw = WF.subm_conv_wgrad(feats, geo.nbr, full, g, nz)
-    xf = feats.clone().requires_grad_()
+    xf = feats.clone().requires_grad_(dgrad)
     wf = w.detach().clone().requires_grad_()
     WF.subm_conv_winfuse(xf, geo.nbr, geo.found, wf, nz, grad_found=full,
                          src_t=src_t).backward(g)
+    # the same bits from run to run: one partial a block, added in order
+    reruns = [WF.subm_conv_wgrad(feats, geo.nbr, full, g, nz)
+              for _ in range(2)]
     torch.cuda.synchronize()
     if (WF.launches_dgrad - counts[0], WF.launches_wgrad - counts[1]) != \
-            (2, 2):
+            (2 if dgrad else 0, 4):
         raise AssertionError(f'winfuse backward {name}: dgrad / wgrad did '
                              f'not launch their kernels')
     # the Function runs the same kernels: the same bits (d weights in the
     # weights' type)
-    if not (torch.equal(xf.grad, got_df) and
+    if not ((not dgrad or torch.equal(xf.grad, got_df)) and
             torch.equal(wf.grad, got_dw.to(wf.dtype))):
         raise AssertionError(f'winfuse backward {name}: the autograd '
                              f'Function differs from its kernels')
+    if not all(torch.equal(r, got_dw) for r in reruns):
+        raise AssertionError(f'winfuse backward {name}: d weights differ '
+                             f'from run to run')
     bf16 = feats.dtype == torch.bfloat16
-    df_scale = float(want_df.float().abs().max())
     dw_scale = float(want_dw.abs().max())
-    df_tol = (dict(rtol=2 ** -7, atol=2 ** -7 * df_scale) if bf16 else
-              dict(rtol=1e-5, atol=1e-5 * df_scale))
     exact_dw = WF.subm_conv_wgrad_plain(feats.double(), geo.nbr, full,
                                         g.double(), nz)
     dw_tol = dict(rtol=1e-4, atol=1e-4 * dw_scale)
-    check_close(f'winfuse dgrad {name}', got_df, want_df, **df_tol)
+    if dgrad:
+        df_scale = float(want_df.float().abs().max())
+        df_tol = (dict(rtol=2 ** -7, atol=2 ** -7 * df_scale) if bf16 else
+                  dict(rtol=1e-5, atol=1e-5 * df_scale))
+        check_close(f'winfuse dgrad {name}', got_df, want_df, **df_tol)
     check_close(f'winfuse wgrad {name}', got_dw, exact_dw, **dw_tol)
     kept_dw = None
     if not torch.equal(geo.found, full):
@@ -890,7 +964,7 @@ def _winfuse_bwd_case(name, feats, geo, w, nz, zmask, reps=5):
     # d feats: the cotangent rows the reversed taps read, the whole output,
     # the weights, the reversed map
     n_rows_t = int(torch.unique(src_t[src_t >= 0]).numel())
-    dgrad_bytes = (n_rows_t * g.shape[1] + got_df.numel() + w.numel()) * es \
+    dgrad_bytes = (n_rows_t * g.shape[1] + feats.numel() + w.numel()) * es \
         + src_t.numel() * 4
     # d weights: the whole cotangent, the source rows the found taps read,
     # the map, the fp32 result
@@ -907,17 +981,20 @@ def _winfuse_bwd_case(name, feats, geo, w, nz, zmask, reps=5):
                cin=cin, cout=cout, rows=rows,
                active_output_sites=int(zmask.sum()),
                dropped_taps_kept_in_backward=int((full & ~geo.found).sum()),
-               ops=ops, tolerance={'dgrad': df_tol, 'wgrad': dw_tol})
+               ops=ops, tolerance={'dgrad': df_tol if dgrad else None,
+                                   'wgrad': dw_tol})
     out['wgrad_plain_autograd_fp32_err'] = max_err(want_dw, exact_dw)[0]
-    for kind, n_bytes, got, want, fn, plain in (
-            ('dgrad', dgrad_bytes, got_df, want_df,
-             lambda: WF.subm_conv_dgrad(g, src_t, w, nz),
-             lambda: WF.subm_conv_plain(g, src_t.clamp(min=0), src_t >= 0,
-                                        flipped, nz)),
-            ('wgrad', wgrad_bytes, got_dw, exact_dw,
-             lambda: WF.subm_conv_wgrad(feats, geo.nbr, full, g, nz),
-             lambda: WF.subm_conv_wgrad_plain(feats, geo.nbr, full, g,
-                                              nz))):
+    kinds = [('wgrad', wgrad_bytes, got_dw, exact_dw,
+              lambda: WF.subm_conv_wgrad(feats, geo.nbr, full, g, nz),
+              lambda: WF.subm_conv_wgrad_plain(feats, geo.nbr, full, g,
+                                               nz))]
+    if dgrad:
+        kinds.insert(0, ('dgrad', dgrad_bytes, got_df, want_df,
+                         lambda: WF.subm_conv_dgrad(g, src_t, w, nz),
+                         lambda: WF.subm_conv_plain(
+                             g, src_t.clamp(min=0), src_t >= 0, flipped,
+                             nz)))
+    for kind, n_bytes, got, want, fn, plain in kinds:
         bound_ms, bound_by = bound(n_bytes)
         out[kind] = dict(max_abs_err=max_err(got, want)[0],
                          max_abs_want=float(want.float().abs().max()),
@@ -925,6 +1002,12 @@ def _winfuse_bwd_case(name, feats, geo, w, nz, zmask, reps=5):
                          plain_ms=cuda_ms(plain, reps=2, warmup=1),
                          bytes=n_bytes, bound_ms=bound_ms,
                          bound_by=bound_by)
+    out['wgrad']['runs_equal'] = len(reruns) + 1
+    out['wgrad']['route'] = WF.route(feats.dtype)
+    if bf16:
+        out['wgrad']['gemm_alone_ms'], out['wgrad']['gemm_items'] = \
+            _wgrad_gemm_alone(feats, geo, g, nz)
+        out['wgrad']['kernel_parts'] = _wgrad_parts_ms(feats, geo, g, nz)
     if kept_dw is not None:
         out['wgrad']['kept_taps_only_max_abs_diff'] = \
             max_err(kept_dw, exact_dw)[0]
@@ -1080,9 +1163,11 @@ def phase_winfuse(dev, results):
     # backward over all of them)
     f32 = torch.float32
     f_drop = x.path_like(cs2, nz2, 32)
-    bwd = [_winfuse_bwd_case(nm, f, geo, w, nz, zm)
-           for nm, (f, geo, w, nz, zm) in inputs.items()
-           if nm != 'conv_input']
+    # conv_input's voxel features take no gradient: d weights only (Cin 5,
+    # the kernel's 8-channel pitch)
+    bwd = [_winfuse_bwd_case(nm, f, geo, w, nz, zm,
+                             dgrad=nm != 'conv_input')
+           for nm, (f, geo, w, nz, zm) in inputs.items()]
     bwd += [
         _winfuse_bwd_case('stage1_fp32', x.path_like(cs1, nz1, 16).float(),
                           geo1, weights(16, 16, f32), nz1, cs1.zmask, reps=2),
@@ -1091,12 +1176,21 @@ def phase_winfuse(dev, results):
         _winfuse_bwd_case('stage2_drop', f_drop, geo_drop, weights(32, 32),
                           nz2, cs2.zmask, reps=2),
     ]
-    main_bwd = bwd[1]                         # stage 2, bf16
+    main_bwd = bwd[2]                         # stage 2, bf16
     for kind in ('dgrad', 'wgrad'):
         c = main_bwd[kind]
         results[f'winfuse_{kind}'] = dict(
             max_abs_err=c['max_abs_err'], ms=c['ms'], plain_ms=c['plain_ms'],
             library_ms=None, bound_ms=c['bound_ms'], bound_by=c['bound_by'])
+    results['winfuse_wgrad']['gemm_alone_ms'] = \
+        main_bwd['wgrad']['gemm_alone_ms']
+    # the tensor-core d weights keeps its sums in registers: no spill
+    wgrad_ptxas = _ptxas_report(cuda_lib.BUILD_LOG.get('winfuse_wgrad', ''))
+    mma_ptxas = [r for r in wgrad_ptxas if 'wgrad_mma' in r['kernel']]
+    if not mma_ptxas or any(r['spill_stores'] or r['spill_loads']
+                            for r in mma_ptxas):
+        raise AssertionError(f'winfuse wgrad: the bf16 kernel spills or is '
+                             f'missing from the ptxas report: {mma_ptxas}')
     emit({'phase': 'winfuse', 'clouds': n,
           'active_columns': {'stage1': int(cs1.col_mask.sum()),
                              'stage2': int(cs2.col_mask.sum())},
@@ -1108,13 +1202,16 @@ def phase_winfuse(dev, results):
                         'forced': drops},
           'cases': cases, 'backward_cases': bwd,
           'ptxas': _ptxas_report(cuda_lib.BUILD_LOG.get('winfuse', '')),
-          'wgrad_ptxas': _ptxas_report(
-              cuda_lib.BUILD_LOG.get('winfuse_wgrad', '')),
+          'wgrad_ptxas': wgrad_ptxas,
           'down1_plain_ms_per_cloud': down1_ms,
           'conv_input_pitch_rows_ms': pitch_ms,
           'forecast_ms_est': ms['conv_input'] + 4 * ms['stage1']
           + 4 * ms['stage2'],
-          'library_call': 'none: no one call computes this function'})
+          'library_call': 'none: no one call computes this function',
+          'gemm_alone': 'torch.matmul of the 9 taps\' compacted, '
+                        'pre-gathered A_k^T B (gathered outside the timed '
+                        'call): a floor for the products alone, not a port '
+                        'of the function'})
 
 
 def _tiny_lidar_config():
@@ -2045,12 +2142,15 @@ def main(argv=None):
     from concurrent.futures import ThreadPoolExecutor
     from streamingflow_tpu_torch.ops import cuda_lib
     t0 = time.perf_counter()
-    # every source and the pool's loads-only variant (phase patch_pool), all
-    # nvcc processes started together
-    with ThreadPoolExecutor(2) as pool:
+    # every source, the pool's loads-only variant (phase patch_pool) and the
+    # d weights' ablations (phase winfuse), all nvcc processes started
+    # together
+    with ThreadPoolExecutor(4) as pool:
         jobs = [pool.submit(cuda_lib.build),
                 pool.submit(cuda_lib.build, ['patch_pool'],
                             ('PATCH_POOL_LOADS_ONLY=1',))]
+        jobs += [pool.submit(cuda_lib.build, ['winfuse_wgrad'], part)
+                 for part in WGRAD_PARTS.values()]
         for job in jobs:
             job.result()
     emit({'phase': 'build', 'seconds': time.perf_counter() - t0,

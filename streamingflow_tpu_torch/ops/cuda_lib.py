@@ -49,7 +49,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         'sf_winfuse_wgrad_fp32': [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
                                   _P],
         'sf_winfuse_wgrad_bf16': [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
-                                  _P]},
+                                  _I, _I, _P]},
 }
 
 _LIBS: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}

@@ -30,8 +30,9 @@ the kept taps and the backward every found tap.  d feats
 (:func:`subm_conv_dgrad`) is the same conv run backwards: K3's forward on
 the cotangent over the reversed map (:func:`reverse_map`) with the weights
 flipped and transposed.  d weights (:func:`subm_conv_wgrad`) is the kernel
-csrc/winfuse_wgrad.cu on the card and :func:`subm_conv_wgrad_plain` on the
-CPU.
+csrc/winfuse_wgrad.cu on the card (bf16 on the tensor cores, its rows as
+:func:`wgrad_rows` prepares them; fp32 on the CUDA cores) and
+:func:`subm_conv_wgrad_plain` on the CPU.
 """
 from __future__ import annotations
 
@@ -260,7 +261,9 @@ def subm_conv_wgrad(feats: torch.Tensor, nbr: torch.Tensor,
     the exact fp32 sum, within JAX's own rounding of it.
 
     On the card the kernel csrc/winfuse_wgrad.cu, the same sums in a fixed
-    order (no float atomics: the same gradient from run to run); on the CPU
+    order (no float atomics: the same gradient from run to run): bf16 as
+    one GEMM a tap on the tensor cores, its depth the cotangent's nonzero
+    (column, z) rows; fp32 on the CUDA cores.  On the CPU
     :func:`subm_conv_wgrad_plain`."""
     if feats.device.type == 'cpu':
         return subm_conv_wgrad_plain(feats, nbr, found, g, nz)
@@ -359,6 +362,17 @@ def _winfuse_cuda(feats, src, weights, nz, count=True):
 WGRAD_BLOCKS_PER_SM = 2
 
 
+def wgrad_rows(feats: torch.Tensor, g: torch.Tensor, nz: int):
+    """The bf16 d-weights kernel's rows: (feats at Cin's channel pitch cp,
+    cp, g at Cout's pitch np, np), each from :func:`pitch_rows` (the rows
+    themselves where Cin or Cout already is a pitch, 8, 16 or 32).  Every
+    z row then starts on 16 bytes, as the kernel's 16-byte copies and its
+    ldmatrix rows need."""
+    cin, cout = feats.shape[1] // nz, g.shape[1] // nz
+    cp, np_ = channel_pitch(cin), channel_pitch(cout)
+    return pitch_rows(feats, nz, cp), cp, pitch_rows(g, nz, np_), np_
+
+
 def _wgrad_cuda(feats, nbr, found, g, nz):
     global launches_wgrad
     cin, cout = feats.shape[1] // nz, g.shape[1] // nz
@@ -385,12 +399,18 @@ def _wgrad_cuda(feats, nbr, found, g, nz):
     scratch = torch.empty(max_parts, 27 * cin * cout, dtype=torch.float32,
                           device=dev)
     out = torch.empty(27, cin, cout, dtype=torch.float32, device=dev)
-    symbol = ('sf_winfuse_wgrad_bf16' if feats.dtype == torch.bfloat16
-              else 'sf_winfuse_wgrad_fp32')
-    err = cuda_lib.kernel('winfuse_wgrad', symbol)(
-        feats.data_ptr(), src.data_ptr(), g.data_ptr(), scratch.data_ptr(),
-        max_parts, out.data_ptr(), v, nz, cin, cout,
-        torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if feats.dtype == torch.bfloat16:
+        rows, cp, g_rows, np_ = wgrad_rows(feats, g, nz)
+        err = cuda_lib.kernel('winfuse_wgrad', 'sf_winfuse_wgrad_bf16')(
+            rows.data_ptr(), src.data_ptr(), g_rows.data_ptr(),
+            scratch.data_ptr(), max_parts, out.data_ptr(), v, nz, cp, cin,
+            np_, cout, stream)
+    else:
+        err = cuda_lib.kernel('winfuse_wgrad', 'sf_winfuse_wgrad_fp32')(
+            feats.data_ptr(), src.data_ptr(), g.data_ptr(),
+            scratch.data_ptr(), max_parts, out.data_ptr(), v, nz, cin, cout,
+            stream)
     cuda_lib.check('winfuse_wgrad', err)
     launches_wgrad += 1
     return out

@@ -32,6 +32,11 @@ On ``spconv8x``:
     the checkout holding this tool, on the package under test), CUDA events
     over 20 calls, and their forecast estimate conv_input + 4 x stage 1 +
     4 x stage 2;
+  - K3's backward on the same inputs, for a cotangent from seed 7 that is
+    zero at the inactive sites (as the training step's): d weights
+    (``subm_conv_wgrad`` over the full found) at all three shapes and d
+    feats (``subm_conv_dgrad`` over the reversed map) at stages 1 and 2,
+    CUDA events over 20 calls;
   - the bf16 forecast, as above, with its K3 launches per request.
 
 Run as a script, not as a module, so that each process imports the package
@@ -54,7 +59,10 @@ KEYS = {'pillar8x': ('k1_wrapper_ms', 'k1_kernel_ms', 'k2_bf16_ms',
                      'k2_fp32_ms', 'pillar_features_ms', 'median_latency_s',
                      'median_step_s'),
         'spconv8x': ('k3_conv_input_ms', 'k3_stage1_ms', 'k3_stage2_ms',
-                     'k3_forecast_ms_est', 'median_latency_s')}
+                     'k3_forecast_ms_est', 'k3_wgrad_conv_input_ms',
+                     'k3_wgrad_stage1_ms', 'k3_wgrad_stage2_ms',
+                     'k3_dgrad_stage1_ms', 'k3_dgrad_stage2_ms',
+                     'median_latency_s')}
 
 
 def _event_ms(fn, reps=20, warmup=3):
@@ -149,12 +157,22 @@ def measure_spconv(root, n_requests):
     smoke = _smoke()
     result = {'root': root, 'package': os.path.dirname(P.__file__)}
     cases, _ = smoke.k3_inputs(dev)
-    for name, (feats, geo, w, nz, _) in cases.items():
+    for name, (feats, geo, w, nz, zmask) in cases.items():
         result[f'k3_{name}_ms'] = _event_ms(
             lambda: WF.subm_conv_winfuse(feats, geo.nbr, geo.found, w, nz))
+        gen = torch.Generator(device=dev).manual_seed(7)
+        rows, cout = geo.nbr.shape[1], w.shape[2]
+        g = (torch.randn(rows, nz, cout, device=dev, generator=gen) *
+             zmask.reshape(rows, nz, 1)).to(feats.dtype).reshape(rows, -1)
+        result[f'k3_wgrad_{name}_ms'] = _event_ms(
+            lambda: WF.subm_conv_wgrad(feats, geo.nbr, geo.grad_found, g,
+                                       nz))
+        if name != 'conv_input':
+            result[f'k3_dgrad_{name}_ms'] = _event_ms(
+                lambda: WF.subm_conv_dgrad(g, geo.src_t, w, nz))
     result['k3_forecast_ms_est'] = result['k3_conv_input_ms'] + 4 * (
         result['k3_stage1_ms'] + result['k3_stage2_ms'])
-    del cases
+    del cases, feats, geo, w, zmask, g
     cfg = flagship_config(backbone='spconv8x')
     model = P.build_model(cfg, device=dev, dtype=torch.bfloat16, seed=0)
     result.update(_latencies(P, model, cfg, dev, n_requests, WF))
