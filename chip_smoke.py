@@ -95,7 +95,28 @@ the CUDA toolkit.  Phases, each printing one JSON line:
                  checkpoint reloaded and held equal to the trained state),
                  then evaluate.main on that checkpoint; K1, K2 and K2's
                  backward counted around each step and each forecast
- 16. kernels     every kernel of the port with its launches, error and times
+ 16. dp_nccl1    the data-parallel step through an NCCL group of one rank
+                 (a spawned process on cuda:0) against train_step here: the
+                 flagship pillar8x training step at batch 1, PROBABILISTIC,
+                 dropout and drop-connect on, beside train_step against
+                 itself run twice (the card's run-to-run spread)
+ 17. dp_gloo2    two gloo ranks on cuda:0, one data-parallel flagship
+                 pillar8x step of global batch 2 against one process's
+                 batch-2 step (and that step's spread); the measures against
+                 the JAX package's DP bars, held at DP_BARS['card']; each
+                 rank's step time (3 after the first), the gradient
+                 all-reduce's time and bytes, collectives a step, peak
+                 memory and K1 / K2 / K2 backward launches, the ranks'
+                 parameters equal
+ 18. dp_spconv   the same on the tiny spconv8x configuration (K2, K3, d
+                 feats, d weights in each rank; MaskedBatchNorm's global
+                 statistics), at the tiny fp32 step's bars
+ 19. dp_cli      python -m torch.distributed.run --nproc_per_node 2 -m
+                 streamingflow_tpu_torch.train --dist-backend gloo on phase
+                 cli's tree (BATCHSIZE 2, one epoch): rank 0's checkpoint,
+                 and the validation sharded over the ranks equal to
+                 evaluate.main of it in one process (IoU, PQ, SQ, RQ 1e-3)
+ 20. kernels     every kernel of the port with its launches, error and times
                  (cli_launches: of phase cli); then a check that every
                  process a phase started (nvcc, the loaders' workers, their
                  fork server and resource tracker) has ended
@@ -107,12 +128,15 @@ matmuls and cuDNN convolutions (torch.backends.cuda.matmul.allow_tf32 =
 torch.backends.cudnn.allow_tf32 = False): fp32 work runs in full fp32.
 """
 import argparse
+import contextlib
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1916,19 +1940,17 @@ def _item_breakdown(cfg, n_items=3):
     return {'item_s': item_s, **parts}
 
 
-def phase_cli(dev, card):
+def phase_cli(dev, card, tmp):
     """The port's own entry points on the nuScenes data path: a
-    flagship-size tree written from a seed (data/mini_nuscenes.py), the
+    flagship-size tree written from a seed (data/mini_nuscenes.py) into
+    ``tmp`` (the caller removes it, after phase dp_cli has used it), the
     loader's host time a batch at 0 workers and at the config's N_WORKERS,
     then ``train.main`` (one epoch of the shipped flagship config with the
     'pallas_patch' pool: 3 steps, validation, a checkpoint) and
     ``evaluate.main`` on the checkpoint it wrote, every kernel count set to
     0 before the two and read after, and read around each step and each
     forecast."""
-    import contextlib
     import io
-    import shutil
-    import tempfile
     import torch
     from streamingflow_tpu_torch import evaluate as E
     from streamingflow_tpu_torch import native
@@ -1946,7 +1968,6 @@ def phase_cli(dev, card):
                              'build or load')
     cfg_file = os.path.join(ROOT, 'configs', 'prediction_lc_ode_variable.yml')
     decoder = raster.image_decoder()
-    tmp = tempfile.mkdtemp(prefix='streamingflow_cli_')
     try:
         tree, log_dir = os.path.join(tmp, 'nuscenes'), os.path.join(tmp, 'log')
         t0 = time.perf_counter()
@@ -2073,12 +2094,486 @@ def phase_cli(dev, card):
                                   for c in per['step']],
             'card': card}
         emit(line)
-        return launches
+        return launches, tree
     finally:
         # the loaders closed their workers; stop the server they were
         # forked from
         stop_worker_server()
-        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ------------------------------------------------------------ data parallel
+# Bars.  The JAX package holds its data-parallel step (tests/test_multichip
+# .py) to: losses 1e-5 relative, gradients before clipping rtol 1e-4 / atol
+# 1e-5, parameters after the step atol 2.1 LR, running statistics rtol 3e-3
+# / atol 1e-5.  On the card the fp32 step does not repeat itself that
+# closely: the same step run twice (the 'repeat' measures) differs by more
+# than the gradient bar.  And the ranks' batch norms take E[x²] - E[x]² of
+# the all-reduced fp32 sums (flax's rule), which cancels: the one-process
+# step put through that same path over a group of one ('moments', equal to
+# the one-process step within 1e-9 in fp64 on the CPU: tests/
+# test_torch_parallel.py) lies as far from the one-process step as the
+# ranks do (1 - cosine ~3e-3 on the flagship).  A planted fault, each
+# rank's batch norms on its own rows ('fault'), lies at cosine below 0.1.
+# So every two-rank phase prints each measure, the 'jax' bars it meets, the
+# 'repeat', 'moments' and 'fault' legs, fails if the fault meets its bars,
+# and holds the ranks to: 'card': the JAX package's
+# bars for the running statistics and the parameters, losses 1e-4
+# relative, the gradient norm 1e-2, the whole gradient's cosine above 0.99
+# (1 - cosine 3x the sound legs', 1/90 of the fault's) and the LiDAR
+# encoder's above 0.98 (the CPU's fp64 test holds the step to 1e-9);
+# 'tiny': the bars this script and tests/test_torch_train_step.py hold the
+# tiny fp32 step to (phase train_tiny_spconv: losses 1e-3, statistics 5e-3
+# of max(scale, 1), the gradient norm 10 %, cosines above 0.98),
+# parameters atol 2.1 LR.
+DP_BARS = {
+    'jax': {'loss_rel': 1e-5, 'grad_excess': 0.0, 'param_abs_lr': 2.1,
+            'stats_excess': 0.0},
+    'card': {'loss_rel': 1e-4, 'grad_norm_rel': 1e-2, 'grad_cosine': 0.99,
+             'lidar_grad_cosine': 0.98, 'param_abs_lr': 2.1,
+             'stats_excess': 0.0},
+    'tiny': {'loss_rel': 1e-3, 'stats_rel': 5e-3, 'grad_norm_rel': 0.1,
+             'grad_cosine': 0.98, 'lidar_grad_cosine': 0.98,
+             'param_abs_lr': 2.1}}
+# phase -> (configuration, points a cloud, timed steps after the first, bars)
+DP_PHASES = {'dp_nccl1': ('flagship', 80000, 0, 'card'),
+             'dp_gloo2': ('flagship', 80000, 3, 'card'),
+             'dp_spconv': ('tiny_spconv', 512, 3, 'tiny')}
+
+
+def _dp_cfg(name):
+    """The flagship pillar8x training configuration (phase train's), or
+    the tiny spconv8x one, each with PROBABILISTIC on (dropout and
+    drop-connect are on in train mode)."""
+    from streamingflow_tpu_torch.data import flagship_config
+    cfg = flagship_config() if name == 'flagship' else _tiny_spconv_config()
+    cfg.PROBABILISTIC.ENABLED = True
+    return cfg
+
+
+def _dp_counters(name):
+    from streamingflow_tpu_torch.ops import bin_sum as B
+    from streamingflow_tpu_torch.ops import patch_pool as PP
+    from streamingflow_tpu_torch.ops import winfuse as WF
+    counters = {'patch_pool': (PP, 'launches'),
+                'patch_pool_bwd': (PP, 'launches_bwd')}
+    if name == 'flagship':
+        counters['bin_sum'] = (B, 'launches')
+    else:
+        counters.update(winfuse=(WF, 'launches'),
+                        winfuse_dgrad=(WF, 'launches_dgrad'),
+                        winfuse_wgrad=(WF, 'launches_wgrad'))
+    return counters
+
+
+def _dp_snapshot(trainer, metrics, cfg, out):
+    """Into ``out``: the step's gradients before clipping, parameters and
+    running statistics, on the CPU."""
+    unclip = max(float(metrics['grad_norm']) / cfg.GRAD_NORM_CLIP, 1.0)
+    names = {n for n, _ in trainer.module.named_parameters()}
+    out['grads'] = {n: (p.grad * unclip).cpu()
+                    for n, p in trainer.module.named_parameters()}
+    out['state'] = {k: v.detach().to('cpu', copy=True) for k, v in
+                    trainer.module.state_dict().items()}
+    out['buffers'] = [k for k in out['state'] if k not in names
+                      and 'num_batches' not in k]
+    out['lr'] = cfg.OPTIMIZER.LR
+    return out
+
+
+@contextlib.contextmanager
+def _local_moments():
+    """A planted fault: every batch norm takes its statistics over the
+    rank's own rows (the sums of global_moments left unreduced)."""
+    from streamingflow_tpu_torch.layers import trainmode as TM
+    from streamingflow_tpu_torch.models import lidar_encoder as LE
+    real = TM.global_moments
+
+    def local(s1, s2, n, pg):
+        return s1, s2, n.to(s1.dtype)
+
+    TM.global_moments = LE.global_moments = local
+    try:
+        yield
+    finally:
+        TM.global_moments = LE.global_moments = real
+
+
+@contextlib.contextmanager
+def _shard_path_of_one():
+    """This process as a gloo group of one (a FileStore in a temporary
+    directory), and train_step taking every coupling of samples through
+    the data-parallel path over it: batch statistics from the all-reduced
+    fp32 Σx and Σx² (E[x²] - E[x]², as the ranks take them), the loss
+    denominators all-reduced.  The step is otherwise the one-process step
+    on the whole batch (the draws, at the shard's shape, are the same)."""
+    import datetime
+    import torch.distributed as dist
+    from streamingflow_tpu_torch.layers.trainmode import BatchShard
+    from streamingflow_tpu_torch.training import trainer as T
+    real = T.batch_shard
+    with tempfile.TemporaryDirectory(prefix='sf_one_') as tmp:
+        dist.init_process_group(
+            'gloo', store=dist.FileStore(os.path.join(tmp, 'store'), 1),
+            rank=0, world_size=1, timeout=datetime.timedelta(seconds=300))
+        T.batch_shard = lambda tr, rows: BatchShard(0, rows, rows,
+                                                    tr.group.pg)
+        try:
+            yield
+        finally:
+            T.batch_shard = real
+            dist.destroy_process_group()
+
+
+def dp_step_run(phase, world, timed=True, fault=False):
+    """One training step of ``phase``'s configuration on the global batch
+    of ``world`` samples (seed 7) from the weights of seed 0 and the
+    generator of seed 11: the data-parallel step when this process is a
+    rank of a launched group, else train_step on the whole batch.  Then
+    the phase's timed steps (``timed``), and on ranks of a group of two or
+    more the gradient all-reduce alone (5 times) and each rank's
+    parameters against rank 0's.  Returns the step's losses, gradients
+    before clipping, parameters and running statistics (on rank 0 or
+    alone; on the CPU), the launch counts of the first step, the times and
+    the peak memory.  ``fault``: then the same first step again from fresh
+    weights with a planted fault (:func:`_local_moments`), its results on
+    rank 0 under 'fault'."""
+    import torch
+    import torch.distributed as dist
+    import streamingflow_tpu_torch as P
+    from streamingflow_tpu_torch.data import make_batch
+    from streamingflow_tpu_torch.parallel import collect as C
+    from streamingflow_tpu_torch.parallel import (make_data_parallel_step,
+                                                  make_mesh)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name, n_points, n_timed, _ = DP_PHASES[phase]
+    cfg = _dp_cfg(name)
+    cfg.BATCHSIZE = world
+    group = make_mesh(world) if dist.is_initialized() else None
+    dev = group.device if group else torch.device('cuda', 0)
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    trainer = P.build_trainer(cfg, device=dev, seed=0, group=group)
+    batch = make_batch(cfg, world, seed=7, n_points=n_points)
+    step = (make_data_parallel_step(cfg, group) if group else
+            lambda tr, b, g: P.train_step(tr, b, generator=g))
+    counters = _dp_counters(name)
+
+    def counts():
+        return {k: getattr(m, a) for k, (m, a) in counters.items()}
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    before, made = counts(), C.collectives
+    metrics = step(trainer, batch, torch.Generator(dev).manual_seed(11))
+    sync()
+    launches = {k: v - before[k] for k, v in counts().items()}
+    collectives = C.collectives - made
+    main = group is None or group.rank == 0
+    out = {'metrics': {k: float(v) for k, v in metrics.items()},
+           'launches': launches, 'collectives': collectives,
+           'device': str(dev), 'rank': 0 if group is None else group.rank}
+    if main:
+        _dp_snapshot(trainer, metrics, cfg, out)
+    times = []
+    for i in range(n_timed if timed else 0):
+        sync()
+        t0 = time.perf_counter()
+        step(trainer, batch, torch.Generator(dev).manual_seed(12 + i))
+        sync()
+        times.append(time.perf_counter() - t0)
+    out['step_s'] = times
+    out['peak_mem_gib'] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    if group is not None and group.world > 1:
+        params = list(trainer.module.parameters())
+        reduce_s = []
+        for _ in range(5):
+            dist.barrier(group=group.pg)
+            sync()
+            t0 = time.perf_counter()
+            C.average_gradients(params, group)
+            sync()
+            reduce_s.append(time.perf_counter() - t0)
+        out['allreduce_s'] = reduce_s
+        out['allreduce_bytes'] = trainer.allreduce_bytes
+        flat = torch.cat([p.detach().reshape(-1) for p in params])
+        ref = flat.clone()
+        dist.broadcast(ref, src=0, group=group.pg)
+        out['max_diff_vs_rank0'] = float((flat - ref).abs().max())
+        del params, flat, ref
+    if fault:
+        del trainer
+        torch.cuda.empty_cache()
+        with _local_moments():
+            trainer = P.build_trainer(cfg, device=dev, seed=0, group=group)
+            metrics = step(trainer, batch,
+                           torch.Generator(dev).manual_seed(11))
+        if main:
+            out['fault'] = _dp_snapshot(
+                trainer, metrics, cfg,
+                {'metrics': {k: float(v) for k, v in metrics.items()}})
+    return out
+
+
+def _dp_measures(got, want):
+    """How far ``got`` (a rank's step) lies from ``want`` (one process's
+    step on the whole batch), by every measure a bar of DP_BARS reads."""
+    import torch
+    out = {}
+
+    def worst(kind, value):
+        out[kind] = max(out.get(kind, 0.0), value)
+
+    for k, w in want['metrics'].items():
+        g = got['metrics'][k]
+        if k.startswith('diag/'):
+            worst('diag_mismatch', float(int(g) != int(w)))
+        elif k == 'grad_norm':
+            worst('grad_norm_rel', abs(g - w) / w)
+        else:
+            worst('loss_rel', abs(g - w) / max(abs(w), 1e-12))
+    grads = want['grads']
+    floor = float(torch.stack([v.abs().max() for v in grads.values()])
+                  .median())
+    dots = {'grad_cosine': [0.0, 0.0, 0.0], 'lidar_grad_cosine': [0.0, 0.0,
+                                                                 0.0]}
+    for k, w in grads.items():
+        g, w = got['grads'][k].double(), w.double()
+        d = (g - w).abs()
+        worst('grad_rel', float(d.max()) / max(float(w.abs().max()), floor))
+        worst('grad_excess', float((d - 1e-5 - 1e-4 * w.abs()).max()))
+        for key in (['grad_cosine', 'lidar_grad_cosine']
+                    if k.startswith('model.lidar_encoder.')
+                    else ['grad_cosine']):
+            dots[key][0] += float((g * w).sum())
+            dots[key][1] += float((g * g).sum())
+            dots[key][2] += float((w * w).sum())
+    for key, (gw, gg, ww) in dots.items():
+        if gg and ww:
+            out[key] = gw / (gg * ww) ** 0.5
+    for k, w in want['state'].items():
+        if 'num_batches' in k:
+            continue
+        g, w = got['state'][k].double(), w.double()
+        d = (g - w).abs()
+        if k in want['buffers']:
+            worst('stats_excess', float((d - 1e-5 - 3e-3 * w.abs()).max()))
+            worst('stats_rel', float(d.max()) / max(float(w.abs().max()),
+                                                    1.0))
+        else:
+            worst('param_abs_lr', float(d.max()) / want['lr'])
+            worst('param_rel', float(d.max()) / max(float(w.abs().max()),
+                                                    floor))
+    return out
+
+
+def _dp_failures(measures, bars):
+    """The bars of ``bars`` (a DP_BARS entry) that ``measures`` break:
+    cosines must reach theirs, every other measure stay within its own."""
+    failed = [k for k, bar in bars.items()
+              if (measures.get(k, 1.0) < bar if k.endswith('cosine')
+                  else not measures.get(k, 0.0) <= bar)]
+    if measures.get('diag_mismatch'):
+        failed.append('diag_mismatch')
+    return failed
+
+
+def _dp_reference(phase, world):
+    """One process's step of ``phase`` on the whole batch (timed), and the
+    same step run again: the second against the first is the step's own
+    run-to-run spread on the card."""
+    import torch
+    want = dp_step_run(phase, world)
+    again = dp_step_run(phase, world, timed=False)
+    torch.cuda.empty_cache()
+    return want, _dp_measures(again, want)
+
+
+def _dp_report(measures, bars):
+    """(failures against ``bars``, the 'jax' bars each measure meets)."""
+    jax = {k: k not in _dp_failures(measures, {k: v})
+           for k, v in DP_BARS['jax'].items()}
+    return _dp_failures(measures, bars), jax
+
+
+def phase_dp_nccl1(card):
+    """The data-parallel step through an NCCL group of one rank (a spawned
+    process on cuda:0) against train_step in this process: the flagship
+    pillar8x training step at batch 1, same weights, batch and generator,
+    PROBABILISTIC, dropout and drop-connect on, at the 'card' bars, beside
+    train_step against itself run twice."""
+    from streamingflow_tpu_torch.parallel.launch import spawn_ranks
+    want, repeat = _dp_reference('dp_nccl1', 1)
+    t0 = time.perf_counter()
+    got, = spawn_ranks(dp_step_run, 1, 'dp_nccl1', 1, backend='nccl',
+                       timeout_s=300.0)
+    measures = _dp_measures(got, want)
+    failed, jax = _dp_report(measures, DP_BARS['card'])
+    if min(got['launches'].values()) < 1:
+        failed.append(f"a kernel did not launch: {got['launches']}")
+    emit({'phase': 'dp_nccl1', 'backend': 'nccl', 'world': 1,
+          'device': got['device'], 'launches': got['launches'],
+          'collectives': got['collectives'], 'measures': measures,
+          'repeat_measures': repeat, 'bars': DP_BARS['card'],
+          'jax_bars_met': jax, 'rank_s': time.perf_counter() - t0,
+          'card': card})
+    if failed:
+        raise AssertionError('dp_nccl1: ' + '; '.join(failed[:20]))
+
+
+def phase_dp_two_ranks(phase, card):
+    """Two gloo ranks, both on cuda:0 (NCCL refuses two ranks on one
+    card), one data-parallel step of global batch 2, against one
+    process's batch-2 step on the card (fp32, TF32 off), at the phase's
+    bars (DP_BARS: 'card' for the flagship, 'tiny' for the tiny spconv8x
+    configuration), every measure printed beside the one-process step's
+    run-to-run spread, the one-process step through the ranks'
+    global-moments path (:func:`_shard_path_of_one`) and the ranks' step
+    with local batch statistics (:func:`_local_moments`), which must break
+    the bars; then the phase's timed steps in each (the first step their
+    warm-up) and one process's, the gradient all-reduce's time and bytes,
+    each rank's peak memory, launches and collectives a step, and the
+    ranks' parameters equal."""
+    import torch
+    from streamingflow_tpu_torch.parallel.launch import spawn_ranks
+    want, repeat = _dp_reference(phase, 2)
+    with _shard_path_of_one():
+        moments = dp_step_run(phase, 2, timed=False)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(dp_step_run, 2, phase, 2, True, True,
+                        backend='gloo', timeout_s=600.0)
+    wall = time.perf_counter() - t0
+    bars = DP_BARS[DP_PHASES[phase][3]]
+    measures = _dp_measures(ranks[0], want)
+    failed, jax = _dp_report(measures, bars)
+    witness = {'moments_vs_one': _dp_measures(moments, want),
+               'ranks_vs_moments': _dp_measures(ranks[0], moments),
+               'fault_vs_one': _dp_measures(ranks[0]['fault'], want)}
+    if not _dp_failures(witness['fault_vs_one'], bars):
+        failed.append('the planted fault (local batch statistics) meets '
+                      'the bars')
+    for r in ranks:
+        if min(r['launches'].values()) < 1:
+            failed.append(f"rank {r['rank']}: a kernel did not launch: "
+                          f"{r['launches']}")
+        if r['max_diff_vs_rank0'] != 0.0:
+            failed.append(f"rank {r['rank']}: parameters differ from rank "
+                          f"0's by {r['max_diff_vs_rank0']}")
+        if r['metrics'] != ranks[0]['metrics']:
+            failed.append(f"rank {r['rank']}: losses differ from rank 0's")
+    emit({'phase': phase, 'config': DP_PHASES[phase][0], 'backend': 'gloo',
+          'world': 2, 'global_batch': 2,
+          'devices': [r['device'] for r in ranks],
+          'measures': measures, 'repeat_measures': repeat, 'bars': bars,
+          'jax_bars_met': jax, 'witness': witness,
+          'fault_bars_broken': _dp_failures(witness['fault_vs_one'], bars),
+          'losses': want['metrics'],
+          'rank_step_s': [r['step_s'] for r in ranks],
+          'median_rank_step_s': [statistics.median(r['step_s'])
+                                 for r in ranks],
+          'single_batch2_step_s': want['step_s'],
+          'median_single_batch2_step_s': statistics.median(want['step_s']),
+          'allreduce_s': [r['allreduce_s'] for r in ranks],
+          'median_allreduce_s': statistics.median(
+              t for r in ranks for t in r['allreduce_s']),
+          'allreduce_bytes': ranks[0]['allreduce_bytes'],
+          'collectives_a_step': [r['collectives'] for r in ranks],
+          'peak_mem_gib': [r['peak_mem_gib'] for r in ranks],
+          'single_batch2_peak_mem_gib': want['peak_mem_gib'],
+          'launches': [r['launches'] for r in ranks],
+          'single_launches': want['launches'], 'ranks_wall_s': wall,
+          'card': card})
+    if failed:
+        raise AssertionError(f'{phase}: ' + '; '.join(failed[:20]))
+
+
+def phase_dp_cli(dev, card, tree, tmp):
+    """``python -m torch.distributed.run --nproc_per_node 2 -m
+    streamingflow_tpu_torch.train --dist-backend gloo`` on phase cli's tree
+    and yml with BATCHSIZE 2 and one epoch (two ranks on cuda:0); rank 0
+    writes the checkpoint, and the validation, sharded over the ranks,
+    equals evaluate.main of that checkpoint in this process at batch 2:
+    the summed metric states (IoU's and PQ's counts, nonzero where the
+    one-step model's scores are 0, so that a shard dropped or counted twice
+    shows) within 1e-3 of each state's largest count, and vehicle IoU, PQ,
+    SQ and RQ within 1e-3."""
+    import io
+    import numpy as np
+    import torch
+    import re
+    from streamingflow_tpu_torch import evaluate as E
+    from streamingflow_tpu_torch.data.dataloader import stop_worker_server
+    from streamingflow_tpu_torch.training.checkpoint import CheckpointManager
+    cfg_file = os.path.join(ROOT, 'configs', 'prediction_lc_ode_variable.yml')
+    log_dir = os.path.join(tmp, 'dp_log')
+    cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+           '--nproc_per_node', '2', '-m', 'streamingflow_tpu_torch.train',
+           '--config-file', cfg_file, '--device', 'cuda',
+           '--dist-backend', 'gloo', 'DATASET.DATAROOT', tree,
+           'DATASET.VERSION', 'mini', 'MODEL.BEV_POOL_BACKEND',
+           'pallas_patch', 'EPOCHS', '1', 'BATCHSIZE', '2',
+           'LOGGING_INTERVAL', '1', 'LOG_DIR', log_dir]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    train_s = time.perf_counter() - t0
+    if run.returncode != 0:
+        print(run.stdout[-4000:], run.stderr[-4000:], file=sys.stderr)
+        raise AssertionError(f'dp_cli: the launcher exited '
+                             f'{run.returncode}')
+    val = re.findall(r'^val (.*)$', run.stdout, re.M)
+    if len(val) != 1:
+        raise AssertionError(f'dp_cli: {len(val)} validation lines')
+    val = {k: float(v) for k, v in
+           (kv.split('=') for kv in val[0].split())}
+    states = re.findall(r'^val_states (.*)$', run.stdout, re.M)
+    if len(states) != 1:
+        raise AssertionError(f'dp_cli: {len(states)} validation state lines')
+    states = json.loads(states[0])
+    dirs = [os.path.join(log_dir, d, 'checkpoints')
+            for d in os.listdir(log_dir)]
+    if len(dirs) != 1 or CheckpointManager(dirs[0]).latest_step() != 1:
+        raise AssertionError(f'dp_cli: checkpoints {dirs}')
+    text = io.StringIO()
+    # evaluate with the backend flags its CLI, and the launcher's ranks,
+    # start with: cuDNN's TF32 on (PyTorch's default; this script turns
+    # it off).  One step from random weights leaves a near-flat centre
+    # heatmap, and TF32's rounding moves which of its maxima the panoptic
+    # post-processing keeps (its false positives doubled).
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with contextlib.redirect_stdout(text):
+            results = E.main(['--checkpoint', dirs[0], '--device', str(dev),
+                              '--batch-size', '2'])
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+        stop_worker_server()
+    one = {'vehicle_iou': float(results['iou'][-1]),
+           **{f'panoptic_{k}': float(v[-1])
+              for k, v in results['pq'].items()}}
+    diff = {k: abs(val[k] - v) for k, v in one.items()}
+    state_diff = {}
+    for k, want in results['states'].items():
+        want = np.asarray(want, np.float64)
+        got = np.asarray(states.get(k, np.zeros_like(want)), np.float64)
+        state_diff[k] = (float(np.abs(got - want).max()) / want.max()
+                         if got.shape == want.shape and want.max() > 0
+                         else math.inf)
+    steps = re.findall(r'^epoch 0 step (\d+) loss', run.stdout, re.M)
+    emit({'phase': 'dp_cli', 'world': 2, 'backend': 'gloo',
+          'train_s': train_s, 'steps': len(steps),
+          'sharded_validation': val, 'evaluate_one_process': one,
+          'abs_diff': diff, 'sharded_states': states,
+          'evaluate_states': results['states'],
+          'state_diff_of_largest': state_diff, 'bar': 1e-3, 'card': card})
+    bad = {k: d for k, d in {**diff, **state_diff}.items()
+           if not d <= 1e-3}
+    if bad or not steps or set(states) != set(results['states']):
+        raise AssertionError(f'dp_cli: validation vs evaluate {bad}, '
+                             f'{len(steps)} steps, states {set(states)}')
 
 
 def _descendants():
@@ -2177,7 +2672,15 @@ def main(argv=None):
     train_launches = phase_train(cfg, dev, args.train_steps, smi)
     phase_train_tiny_spconv(dev)
     spconv_launches = phase_train_spconv(dev, args.train_steps, smi)
-    cli_launches = phase_cli(dev, smi)
+    tmp = tempfile.mkdtemp(prefix='streamingflow_cli_')
+    try:
+        cli_launches, tree = phase_cli(dev, smi, tmp)
+        phase_dp_nccl1(smi)
+        phase_dp_two_ranks('dp_gloo2', smi)
+        phase_dp_two_ranks('dp_spconv', smi)
+        phase_dp_cli(dev, smi, tree, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     # launches: of the serving path's requests (bin_sum, patch_pool,
     # winfuse), of the training steps (patch_pool_bwd, and the spconv8x

@@ -10,6 +10,16 @@ into ``batch_size`` pieces, the last partial one dropped with ``drop_last``.
 Items whose ``status`` is not 'valid' are dropped from their batch, and an
 emptied batch is skipped, as there.
 
+Under data parallelism (``shard=(rank, world)``) every rank walks the same
+global batches (same seed, same order) and loads only its rows of each:
+``[rank b, (rank + 1) b)`` with b = batch_size / world, fewer (or none) in
+a partial last batch, so that a validation split is covered once, with no
+item repeated to even out the ranks (which would count it twice in IoU and
+PQ).  A sharded loader's batches carry ``batch_shard`` = (start, size,
+total): the rank's rows of a global batch of ``total`` (not where an
+invalid item was dropped: parallel.complete_batches skips such a global
+batch in training).
+
 ``DataLoader.close`` stops a loader's workers; :func:`stop_worker_server`
 then stops the server process they were forked from and its resource
 tracker, so that a program that must leave no process behind can.
@@ -17,7 +27,7 @@ tracker, so that a program that must leave no process behind can.
 from __future__ import annotations
 
 import multiprocessing
-from typing import Iterator, List, Optional
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -69,30 +79,50 @@ def collate_valid(items) -> Optional[dict]:
 
 
 class EpochBatchSampler(tud.Sampler):
-    """Index batches of the JAX loader for the epoch in ``self.epoch``."""
+    """Index batches of the JAX loader for the epoch in ``self.epoch``;
+    with ``world`` > 1, rank ``rank``'s rows of each."""
 
     def __init__(self, n: int, batch_size: int, shuffle: bool,
-                 drop_last: bool, seed: int = 0):
+                 drop_last: bool, seed: int = 0, rank: int = 0,
+                 world: int = 1):
+        if batch_size % world:
+            raise ValueError(f'a global batch of {batch_size} does not '
+                             f'shard over {world} ranks')
         self.n = n
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
+        self.rank = rank
+        self.world = world
         self.epoch = 0
 
-    def __len__(self):
-        if self.drop_last:
-            return self.n // self.batch_size
-        return -(-self.n // self.batch_size)
-
-    def __iter__(self) -> Iterator[List[int]]:
+    def shards(self) -> List[Tuple[List[int], Tuple[int, int, int]]]:
+        """This rank's non-empty (indices, (start, size, total)) of each
+        global batch of the epoch, in order."""
         idx = np.arange(self.n)
         if self.shuffle:
             rng = np.random.RandomState(self.seed + self.epoch)
             rng.shuffle(idx)
-        for b in range(len(self)):
-            yield [int(i) for i in
-                   idx[b * self.batch_size:(b + 1) * self.batch_size]]
+        per = self.batch_size // self.world
+        n_batches = (self.n // self.batch_size if self.drop_last
+                     else -(-self.n // self.batch_size))
+        out = []
+        for b in range(n_batches):
+            batch = idx[b * self.batch_size:(b + 1) * self.batch_size]
+            lo = min(self.rank * per, len(batch))
+            hi = min(lo + per, len(batch))
+            if hi > lo:
+                out.append(([int(i) for i in batch[lo:hi]],
+                            (lo, hi - lo, len(batch))))
+        return out
+
+    def __len__(self):
+        return len(self.shards())
+
+    def __iter__(self) -> Iterator[List[int]]:
+        for indices, _ in self.shards():
+            yield indices
 
 
 class DataLoader:
@@ -101,10 +131,11 @@ class DataLoader:
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  drop_last: bool = True, num_workers: int = 0,
-                 pin_memory: bool = False, seed: int = 0):
+                 pin_memory: bool = False, seed: int = 0,
+                 shard: Tuple[int, int] = (0, 1)):
         self.dataset = dataset
         self.sampler = EpochBatchSampler(len(dataset), batch_size, shuffle,
-                                         drop_last, seed)
+                                         drop_last, seed, *shard)
         self.epoch = 0
         workers = dict(num_workers=num_workers,
                        multiprocessing_context=worker_context(),
@@ -125,17 +156,30 @@ class DataLoader:
             workers._shutdown_workers()
 
     def __iter__(self) -> Iterator[dict]:
+        return (batch for batch in self.rank_batches() if batch is not None)
+
+    def rank_batches(self) -> Iterator[Optional[dict]]:
+        """This rank's batch of each global batch of the epoch, in order,
+        None where every one of its items was invalid (``__iter__`` skips
+        those).  Under data parallelism a batch that holds all its rows
+        carries ``batch_shard``; one that lost an item does not, since its
+        rows are no longer a range of the global batch."""
         self.sampler.epoch = self.epoch
-        for batch in self._loader:
-            if batch is not None:
-                yield batch
+        metas = [meta for _, meta in self.sampler.shards()]
+        for meta, batch in zip(metas, self._loader):
+            if batch is not None and self.sampler.world > 1 and \
+                    len(batch['future_egomotion']) == meta[1]:
+                batch['batch_shard'] = meta
+            yield batch
         self.epoch += 1
 
 
 def prepare_dataloaders(cfg: Config, return_dataset: bool = False,
-                        pin_memory: bool = False):
+                        pin_memory: bool = False, group=None):
     """Build train/val loaders (reference datas/dataloaders.py:10-74).
-    ``pin_memory``: page-locked batches, for a CUDA device."""
+    ``pin_memory``: page-locked batches, for a CUDA device.  ``group``: a
+    data-parallel group (parallel.make_mesh); each loader then yields this
+    rank's rows of the global batches of ``cfg.BATCHSIZE``."""
     from .nuscenes import FuturePredictionDataset
     from .nuscenes_sdk import NuScenes
 
@@ -161,7 +205,8 @@ def prepare_dataloaders(cfg: Config, return_dataset: bool = False,
         train_ds.indices = train_ds.indices[:10]
         val_ds.indices = val_ds.indices[:10]
 
-    kw = dict(num_workers=cfg.N_WORKERS, pin_memory=pin_memory)
+    kw = dict(num_workers=cfg.N_WORKERS, pin_memory=pin_memory,
+              shard=(0, 1) if group is None else (group.rank, group.world))
     train = DataLoader(train_ds, cfg.BATCHSIZE, shuffle=True, **kw)
     val = DataLoader(val_ds, cfg.BATCHSIZE, shuffle=False, drop_last=False,
                      **kw)

@@ -76,12 +76,13 @@ def build_eval_state(args, cfg_mutator=None):
     return cfg, ckpt
 
 
-def forward_and_labels(trainer, batch: Dict, cfg
+def forward_and_labels(trainer, batch: Dict, cfg, shard=None
                        ) -> Tuple[Dict[str, np.ndarray],
                                   Dict[str, np.ndarray], float]:
-    """The eval forward of a loader batch on the trainer's device, and the
-    batch's labels warped into the present frame on the host.  Returns
-    (labels, outputs) as float32/int numpy (the forward's capacity
+    """The eval forward of a loader batch on the trainer's device (``shard``:
+    the batch is a rank's rows of a global batch, as eval_forward takes
+    it), and the batch's labels warped into the present frame on the host.
+    Returns (labels, outputs) as float32/int numpy (the forward's capacity
     diagnostics, where it has any, as ints under ``'diagnostics'``), and
     the forward's seconds (host clock, the device synchronised)."""
     dev = trainer.device
@@ -90,7 +91,7 @@ def forward_and_labels(trainer, batch: Dict, cfg
     if dev.type == 'cuda':
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    output = eval_forward(trainer, batch)
+    output = eval_forward(trainer, batch, shard=shard)
     if dev.type == 'cuda':
         torch.cuda.synchronize(dev)
     seconds = time.perf_counter() - t0
@@ -116,7 +117,8 @@ def run_eval(cfg, ckpt, short_interval: bool = False, plot_dir=None,
     (``forward_s``)."""
     from .data.dataloader import prepare_dataloaders
     from .postprocess import predict_instance_segmentation_and_trajectories
-    from .training.metrics import IntersectionOverUnion, PanopticMetric
+    from .training.metrics import (IntersectionOverUnion, PanopticMetric,
+                                   metric_states)
     from .utils.visualisation import visualise_output
 
     dev = resolve_device(device)
@@ -189,6 +191,9 @@ def run_eval(cfg, ckpt, short_interval: bool = False, plot_dir=None,
     if t_fwd:
         print(f'mean forward time: {np.mean(t_fwd[1:] or t_fwd):.3f}s')
     results['forward_s'] = t_fwd
+    results['states'] = metric_states(vehicle=metric_vehicle,
+                                      panoptic=metric_panoptic,
+                                      pedestrian=metric_pedestrian)
     return results
 
 

@@ -23,6 +23,7 @@ from torch import nn
 
 from .srvp import ConvNet, SmallDecoder, SmallEncoder
 from .temporal import DualGRUCell
+from .trainmode import BatchShard, shard_draw
 
 
 def softplus_rsample(raw_params: torch.Tensor,
@@ -45,6 +46,10 @@ class GRUODEBayes(nn.Module):
     -> decoded per-target states (B, E_tgt, C, H, W).  Times are seconds
     relative to the present frame.  ``generator`` feeds the latent sampling
     when ``stochastic``."""
+
+    # the global batch this forward's batch is a shard of: the noise is
+    # drawn at its shape (layers/trainmode.py::set_shard)
+    shard: Optional[BatchShard] = None
 
     def __init__(self, input_size: int, hidden_size: int, delta_t: float,
                  solver: str = 'euler', impute: bool = False,
@@ -76,8 +81,11 @@ class GRUODEBayes(nn.Module):
         if self.stochastic:
             loc_shape = (params.shape[0], params.shape[1] // 2,
                          *params.shape[2:])
-            noise = torch.randn(loc_shape, generator=generator,
-                                dtype=params.dtype, device=params.device)
+            noise = shard_draw(
+                lambda s: torch.randn(s, generator=generator,
+                                      dtype=params.dtype,
+                                      device=params.device),
+                loc_shape, self.shard)
         return softplus_rsample(params, noise)
 
     def _dh(self, inp, state):

@@ -39,7 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import SparseEncoderConfig
-from ..layers.trainmode import BatchNorm, remat
+from ..layers.trainmode import BatchNorm, global_moments, remat
 from ..ops import sparse_columns as SC
 from ..ops.voxelize import LARGE_ID, linearize, voxelize
 from ..ops.winfuse import fused_found, reverse_map, subm_conv_winfuse
@@ -121,6 +121,7 @@ class MaskedBatchNorm(BatchNorm):
     biased variance max(E[x^2] - mean^2, 0) normalises, and the running
     statistics move by flax's momentum 0.99 (torch ``momentum`` 0.01),
     the variance's toward the unbiased n / max(n - 1, 1) times it.  Under a
+    data-parallel shard the sums and n are the global batch's.  Under a
     rematerialised region's second run (layers/trainmode.py::remat) the
     running statistics stay where the first run left them."""
 
@@ -131,7 +132,12 @@ class MaskedBatchNorm(BatchNorm):
         c = self.num_features
         if self.training:
             s1, s2 = _MaskedMoments.apply(x, mask, c)
-            n = mask.sum().to(s1.dtype).clamp(min=1.0)
+            n = mask.sum().to(s1.dtype)
+            if self.shard is not None and self.shard.pg is not None:
+                # the global batch's sums and count (a rank may hold no
+                # active site)
+                s1, s2, n = global_moments(s1, s2, n, self.shard.pg)
+            n = n.clamp(min=1.0)
             mean = s1 / n
             var = torch.maximum(s2 / n - mean * mean, torch.zeros_like(s1))
             if self.update_stats:

@@ -24,6 +24,10 @@ step is written under a temporary name and renamed into place, so a run cut
 while saving leaves the steps before it, never a half-written one.  The JAX
 package's orbax steps sit in the same ``<step>`` directories without a
 ``checkpoint.pt``: the manager raises on them and names the conversion.
+
+In a data-parallel run (a ``group`` from parallel.make_mesh) rank 0 alone
+writes, and every rank waits at a barrier after the save; a restore reads
+on rank 0 and broadcasts the state to the other ranks.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from ..config import Config
+from ..parallel.collect import barrier, broadcast_object
 
 FORMAT = 'streamingflow_tpu_torch'
 FILENAME = 'checkpoint.pt'
@@ -122,13 +127,18 @@ class CheckpointManager:
     def save(self, step: int, trainer, cfg: Config,
              generator: Optional[torch.Generator] = None) -> str:
         """Save the trainer's module and Adam state (and ``generator``'s
-        state) as ``step``."""
-        return self.write(step, {
-            'model': trainer.module.state_dict(),
-            'optimizer': trainer.optimizer.state_dict(),
-            'optimizer_step': trainer.step,
-            'generator': (generator.get_state() if generator is not None
-                          else None)}, cfg)
+        state) as ``step``: on rank 0 of the trainer's group, every rank
+        waiting until it is written.  Returns the file's path."""
+        group = trainer.group
+        if group is None or group.is_main:
+            self.write(step, {
+                'model': trainer.module.state_dict(),
+                'optimizer': trainer.optimizer.state_dict(),
+                'optimizer_step': trainer.step,
+                'generator': (generator.get_state() if generator is not None
+                              else None)}, cfg)
+        barrier(group)
+        return self._path(step)
 
     # --------------------------------------------------------------- restore
     def restore_raw(self, step: Optional[int] = None) -> Dict:
@@ -145,9 +155,13 @@ class CheckpointManager:
                 generator: Optional[torch.Generator] = None):
         """Load ``step`` (default: the latest) into the trainer in place:
         the module strictly, Adam's state and the count of optimizer steps
-        where the checkpoint has them, and ``generator``'s state.  Returns
-        the trainer."""
-        raw = self.restore_raw(step)
+        where the checkpoint has them, and ``generator``'s state.  In a
+        data-parallel group rank 0 reads and every rank loads its state.
+        Returns the trainer."""
+        group = trainer.group
+        raw = broadcast_object(
+            self.restore_raw(step) if group is None or group.is_main
+            else None, group)
         trainer.module.load_state_dict(raw['model'], strict=True)
         if raw['optimizer'] is not None:
             trainer.optimizer.load_state_dict(raw['optimizer'])

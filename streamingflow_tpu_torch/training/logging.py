@@ -92,6 +92,21 @@ class MetricsLogger:
             self._jsonl.close()
 
 
+class NullLogger:
+    """MetricsLogger's interface, writing nothing: the logger of every rank
+    of a data-parallel run but rank 0, which alone logs."""
+
+    def scalar(self, *args, **kwargs):
+        pass
+
+    scalars = video = scalar
+
+    def flush(self):
+        pass
+
+    close = flush
+
+
 class SimpleProfiler:
     """Wall-time span table (the reference Lightning profiler='simple')."""
 

@@ -2,13 +2,19 @@
 
 Port of streamingflow_tpu/training/losses.py: the same arithmetic
 ignore-index masking and the fixed-k top-k (k from the static shapes).
+Under data parallelism every loss but the spatial regression is a plain
+mean over equal shards (the top-k is per (b, s)), so each rank's mean
+averages to the global one; the regression's denominator is made global.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+
+from ..layers.trainmode import BatchShard
+from ..parallel.collect import all_reduce_sum
 
 
 def _discounts(seq_len: int, n_present: int, future_discount: float,
@@ -54,9 +60,17 @@ def segmentation_loss(prediction: torch.Tensor, target: torch.Tensor,
 def spatial_regression_loss(prediction: torch.Tensor, target: torch.Tensor,
                             norm: int, n_present: int = 3,
                             ignore_index: int = 255,
-                            future_discount: float = 1.0) -> torch.Tensor:
+                            future_discount: float = 1.0,
+                            shard: Optional[BatchShard] = None
+                            ) -> torch.Tensor:
     """L1 / L2 regression, channel-summed, ignore-masked, discounted mean;
-    zero when every element is masked.  prediction/target (B, S, H, W, C)."""
+    zero when every element is masked.  prediction/target (B, S, H, W, C).
+
+    With a ``shard`` of a global batch (and its group), the denominator is
+    the global batch's valid count, and the loss is scaled so that its mean
+    over the ranks is the global loss: total / size times the rank's
+    masked sum over the global count (zero when the global batch is all
+    masked)."""
     mask = target[..., :1] != ignore_index
     if norm == 1:
         err = (prediction - target).abs()
@@ -69,7 +83,12 @@ def spatial_regression_loss(prediction: torch.Tensor, target: torch.Tensor,
                       loss.device)
     loss = loss * disc[None, :, None, None, None]
     n = mask.sum()
-    total = (loss * mask).sum() / n.clamp(min=1)
+    if shard is not None and shard.pg is not None:
+        n = all_reduce_sum(n.to(loss.dtype), shard.pg)
+        total = ((loss * mask).sum() * (shard.total / shard.size)
+                 / n.clamp(min=1))
+    else:
+        total = (loss * mask).sum() / n.clamp(min=1)
     return torch.where(n == 0, torch.zeros_like(total), total)
 
 

@@ -189,3 +189,12 @@ class PanopticMetric:
             'sq': self.iou / np.maximum(self.true_positive, 1.0),
             'rq': self.true_positive / denominator,
         }
+
+
+def metric_states(**metrics) -> Dict[str, list]:
+    """Each metric's state as nested lists, by name (None skipped): the
+    counts behind IoU (true and false positives, false negatives, support)
+    and PQ (IoU sum, true and false positives, false negatives), which
+    count every label even where the score is 0."""
+    return {k: m.state().tolist() for k, m in metrics.items()
+            if m is not None}

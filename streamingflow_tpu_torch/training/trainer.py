@@ -7,7 +7,11 @@ under one parameter tree, as the JAX package's does.  A step is: warp the
 labels into the present frame -> forward in train mode -> losses -> backward
 -> clip the global gradient norm -> Adam with the weight decay added to the
 gradient (not decoupled) -> new BatchNorm statistics (updated in place by
-the forward).
+the forward).  A trainer built with a data-parallel group
+(parallel/mesh.py) runs the same step on its rank's rows of the global
+batch, with the batch statistics, the loss denominators and the random
+draws taken over the global batch, and the gradients averaged over the
+ranks between the backward and the clip.
 
 :func:`build_trainer`, :func:`train_step` and :func:`eval_forward` run on
 the card unless given ``device='cpu'``.
@@ -23,7 +27,9 @@ from torch import nn
 from .. import geometry as G
 from ..config import Config
 from ..device import resolve_device
+from ..layers.trainmode import BatchShard, set_shard
 from ..models.streamingflow import StreamingFlow
+from ..parallel import collect as C
 from . import losses as L
 
 
@@ -151,9 +157,12 @@ def prepare_future_labels(batch: Dict[str, torch.Tensor], cfg: Config
 def compute_losses(output: Dict[str, torch.Tensor],
                    labels: Dict[str, torch.Tensor],
                    weights: Dict[str, torch.Tensor],
-                   cfg: Config) -> Dict[str, torch.Tensor]:
+                   cfg: Config, shard: Optional[BatchShard] = None
+                   ) -> Dict[str, torch.Tensor]:
     """Uncertainty-weighted loss dict: each task's loss times
-    ``1 / (2 e^w)``, and ``w / 2`` under ``{task}_uncertainty``."""
+    ``1 / (2 e^w)``, and ``w / 2`` under ``{task}_uncertainty``.  With a
+    data-parallel ``shard`` each term is the rank's part, whose mean over
+    the ranks is the global batch's term."""
     rf = cfg.TIME_RECEPTIVE_FIELD
     fd = cfg.FUTURE_DISCOUNT
     loss: Dict[str, torch.Tensor] = {}
@@ -187,13 +196,14 @@ def compute_losses(output: Dict[str, torch.Tensor],
         loss['instance_center'] = factor('centerness') * \
             L.spatial_regression_loss(output['instance_center'],
                                       labels['centerness'], norm=2,
-                                      n_present=rf, future_discount=fd)
+                                      n_present=rf, future_discount=fd,
+                                      shard=shard)
         loss['centerness_uncertainty'] = 0.5 * weights['centerness']
         loss['instance_offset'] = factor('offset') * \
             L.spatial_regression_loss(output['instance_offset'],
                                       labels['offset'], norm=1, n_present=rf,
                                       ignore_index=cfg.DATASET.IGNORE_INDEX,
-                                      future_discount=fd)
+                                      future_discount=fd, shard=shard)
         loss['offset_uncertainty'] = 0.5 * weights['offset']
 
     if cfg.LIFT.GT_DEPTH and output.get('depth_prediction') is not None:
@@ -204,7 +214,8 @@ def compute_losses(output: Dict[str, torch.Tensor],
     if cfg.INSTANCE_FLOW.ENABLED:
         loss['instance_flow'] = factor('flow') * L.spatial_regression_loss(
             output['instance_flow'], labels['flow'], norm=1, n_present=rf,
-            ignore_index=cfg.DATASET.IGNORE_INDEX, future_discount=fd)
+            ignore_index=cfg.DATASET.IGNORE_INDEX, future_discount=fd,
+            shard=shard)
         loss['flow_uncertainty'] = 0.5 * weights['flow']
     return loss
 
@@ -217,27 +228,46 @@ def make_optimizer(params, cfg: Config) -> torch.optim.Adam:
 
 
 class Trainer:
-    """The state of a training run: the train module, its optimizer, and the
-    device they live on."""
+    """The state of a training run: the train module, its optimizer, the
+    device they live on, and the data-parallel group of this rank (None:
+    one process)."""
 
     def __init__(self, cfg: Config, module: StreamingFlowTrainModule,
-                 device: torch.device):
+                 device: torch.device, group=None):
         self.cfg = cfg
         self.module = module
         self.device = device
+        self.group = group
         self.optimizer = make_optimizer(module.parameters(), cfg)
         self.step = 0
+        # bytes of the last step's gradient all-reduce (0 at world 1)
+        self.allreduce_bytes = 0
 
 
-def build_trainer(cfg: Config, device=None, seed: Optional[int] = None
-                  ) -> Trainer:
+def build_trainer(cfg: Config, device=None, seed: Optional[int] = None,
+                  group=None) -> Trainer:
     """A trainer with fp32 parameters on ``device`` ('cuda' unless asked
     for 'cpu'; raises when CUDA is absent and no device was given).
-    ``seed`` makes the random initial weights reproducible."""
-    dev = resolve_device(device)
+    ``seed`` makes the random initial weights reproducible.  With a
+    data-parallel ``group`` (parallel.make_mesh) the trainer lives on the
+    group's device and starts from rank 0's parameters and buffers."""
+    dev = resolve_device(group.device if device is None and group is not None
+                         else device)
     if seed is not None:
         torch.manual_seed(seed)
-    return Trainer(cfg, StreamingFlowTrainModule(cfg).to(dev), dev)
+    trainer = Trainer(cfg, StreamingFlowTrainModule(cfg).to(dev), dev, group)
+    C.broadcast_module(trainer.module, group)
+    return trainer
+
+
+def batch_shard(trainer: Trainer, rows: int) -> Optional[BatchShard]:
+    """This rank's shard of the global batch when the trainer's group has
+    more than one rank: ``rows`` samples at ``rank * rows`` of ``world *
+    rows``."""
+    g = trainer.group
+    if g is None or g.world == 1:
+        return None
+    return BatchShard(g.rank * rows, rows, g.world * rows, g.pg)
 
 
 LABEL_KEYS = ('future_egomotion', 'segmentation', 'pedestrian', 'instance',
@@ -254,8 +284,15 @@ def train_step(trainer: Trainer, batch,
     with ``total_loss``, the gradient norm before clipping (``grad_norm``)
     and ``diag/<name>`` for each of the forward's capacity diagnostics (the
     spconv8x encoder's, as the JAX step returns them), detached, on the
-    device: nothing is read to the host."""
+    device: nothing is read to the host.
+
+    On a trainer with a data-parallel group, ``batch`` is this rank's rows
+    of the global batch (parallel.shard_batch), ``generator`` is in the
+    same state on every rank, and the returned losses and counters are the
+    global batch's."""
     cfg, module, dev = trainer.cfg, trainer.module, trainer.device
+    shard = batch_shard(trainer, len(batch['future_egomotion']))
+    set_shard(module, shard)
     labels = prepare_future_labels(
         {k: to_tensor(batch[k], dev) for k in LABEL_KEYS if k in batch}, cfg)
     # images in the parameters' dtype; points, poses and times stay float32
@@ -265,7 +302,7 @@ def train_step(trainer: Trainer, batch,
     module.train()
     trainer.optimizer.zero_grad(set_to_none=True)
     output, weights = module(**model_args, generator=generator)
-    loss_dict = compute_losses(output, labels, weights, cfg)
+    loss_dict = compute_losses(output, labels, weights, cfg, shard)
     total = sum(loss_dict.values())
     total.backward()
     # a parameter the loss does not reach has a zero gradient, not none: the
@@ -273,6 +310,8 @@ def train_step(trainer: Trainer, batch,
     for p in module.parameters():
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+    trainer.allreduce_bytes = C.average_gradients(list(module.parameters()),
+                                                  trainer.group)
     grad_norm = torch.nn.utils.clip_grad_norm_(module.parameters(),
                                                cfg.GRAD_NORM_CLIP)
     trainer.optimizer.step()
@@ -280,18 +319,30 @@ def train_step(trainer: Trainer, batch,
     metrics = {'total_loss': total, **loss_dict, 'grad_norm': grad_norm}
     for k, v in module.model.diagnostics().items():
         metrics[f'diag/{k}'] = v
-    return {k: v.detach() for k, v in metrics.items()}
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return metrics if shard is None else C.reduce_metrics(metrics,
+                                                          trainer.group)
 
 
 def eval_forward(trainer: Trainer, batch,
-                 generator: Optional[torch.Generator] = None
+                 generator: Optional[torch.Generator] = None,
+                 shard: Optional[BatchShard] = None
                  ) -> Dict[str, Optional[torch.Tensor]]:
     """Inference forward pass (running BN statistics, no dropout).  The
+    GRU-ODE's noise (PROBABILISTIC) comes from ``generator``, by default a
+    generator seeded 0 anew for each call, as the JAX package's
+    eval_forward draws from PRNGKey(0) each call: a batch's forecast does
+    not depend on the batches before it.  ``shard``: the batch is rows
+    ``[start, start + size)`` of a global batch of ``total`` (a rank's
+    share of a sharded validation), and the noise is that batch's.  The
     forward's capacity diagnostics, where it has any (spconv8x), are under
     ``output['diagnostics']``, {name: int32 device scalar}, as the JAX
     package's eval_forward returns them."""
     model_args = batch_to_model_args(batch, trainer.cfg,
                                      device=trainer.device)
+    if generator is None:
+        generator = torch.Generator(trainer.device).manual_seed(0)
+    set_shard(trainer.module, shard)
     trainer.module.eval()
     with torch.no_grad():
         output, _ = trainer.module(**model_args, generator=generator)

@@ -41,7 +41,8 @@ def test_no_port_file_imports_jax_or_the_jax_package():
             'checkpoint.py', 'logging.py', 'metrics.py', 'instance.py',
             'visualisation.py', 'nuscenes.py', 'nuscenes_sdk.py',
             'labels.py', 'lyft.py', 'sampler.py', 'dataloader.py',
-            'raster.py', 'mini_nuscenes.py'} <= names
+            'raster.py', 'mini_nuscenes.py', 'mesh.py', 'collect.py',
+            'launch.py', 'dryrun_multichip.py'} <= names
     bad = [(str(p.relative_to(ROOT)), name) for p in files
            for name in _imports(p)
            if name.split('.')[0] in FORBIDDEN]
@@ -80,7 +81,10 @@ def test_import_needs_neither_jax_nor_yaml():
             'streamingflow_tpu_torch.training.checkpoint, '
             'streamingflow_tpu_torch.training.metrics, '
             'streamingflow_tpu_torch.training.logging, '
-            'streamingflow_tpu_torch.utils.visualisation; '
+            'streamingflow_tpu_torch.utils.visualisation, '
+            'streamingflow_tpu_torch.parallel, '
+            'streamingflow_tpu_torch.parallel.launch, '
+            'streamingflow_tpu_torch.tools.dryrun_multichip; '
             'print(sorted(m for m in ("jax", "flax", "orbax", "cv2", "PIL", '
             '"yaml", "streamingflow_tpu") if m in sys.modules))')
     out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
@@ -103,6 +107,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         P.batch_to_model_args(make_batch(cfg, 1, n_points=16), cfg)
     with pytest.raises(RuntimeError, match='CUDA'):
         P.build_trainer(cfg)
+    from streamingflow_tpu_torch.parallel import make_mesh
+    with pytest.raises(RuntimeError, match='CUDA'):
+        make_mesh(2)
+    from streamingflow_tpu_torch.tools import dryrun_multichip
+    with pytest.raises(RuntimeError, match='CUDA'):
+        dryrun_multichip.main(['2'])
     from streamingflow_tpu_torch.tools import exp_bin_variants
     with pytest.raises(RuntimeError, match='CUDA'):
         exp_bin_variants.run((4,), n_clouds=1, n_points=16)
