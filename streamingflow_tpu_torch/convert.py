@@ -20,6 +20,12 @@ Variables come as numpy arrays: ``{'params': {...}, 'batch_stats': {...}}``
 nested dicts.  The conversion raises if a JAX leaf is left unconsumed or a
 torch parameter or buffer is left unassigned (BatchNorm's
 ``num_batches_tracked`` is torch's own training counter and is set to 0).
+One exception: the distribution head ``present_distribution``
+(PROBABILISTIC.ENABLED).  No forward calls it, in the JAX package as in the
+reference, so a JAX tree made by ``init`` holds none of its leaves; when the
+tree has no leaf of it at all, its tensors keep the module's own values (as
+the rule table's IGNORED_FLAX treats them).  A tree with some of its leaves
+is held to all of them.
 BatchNorm eps is a constructor argument of each torch module and matches the
 flax module's (1e-3 in EfficientNet and the pillar ladder, 1e-5 elsewhere);
 flax BN momentum m is torch momentum 1 - m.
@@ -52,6 +58,10 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 from torch import nn
+
+
+# the module that a JAX tree may lack whole (see the docstring)
+HEAD = 'present_distribution'
 
 
 def flatten(tree: Mapping, prefix: str = '') -> Dict[str, np.ndarray]:
@@ -116,6 +126,8 @@ def flax_to_state_dict(model: nn.Module, variables: Mapping
         raise KeyError(f'unknown variable collections: {sorted(extra)}')
     used = {col: set() for col in leaves}
     target = model.state_dict()
+    head_in_tree = any(HEAD in p.split('/') for col in leaves
+                       for p in leaves[col])
     out, missing = {}, []
     for mod_name, module in model.named_modules():
         tensors = list(module.named_parameters(recurse=False)) + \
@@ -131,7 +143,10 @@ def flax_to_state_dict(model: nn.Module, variables: Mapping
             path = '/'.join([*mod_name.split('.'), leaf]) if mod_name \
                 else leaf
             if path not in leaves[col]:
-                missing.append(f'{col}:{path} (for {full})')
+                if not head_in_tree and HEAD in mod_name.split('.'):
+                    out[full] = target[full].detach().to('cpu', copy=True)
+                else:
+                    missing.append(f'{col}:{path} (for {full})')
                 continue
             value = leaves[col][path]
             used[col].add(path)

@@ -78,7 +78,7 @@ extern "C" int sf_bin_sum_grouped(const float* data, const int* ids,
   const bin_tile::Params p{data,       ids,          bounds, out,
                            row_stride, cloud_stride, n_rows, n_bins,
                            n_tiles,    bins_per_cloud, n_store, C,
-                           n_feat};
+                           n_feat,     0.0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = out_bf16 ? launch_type<__nv_bfloat16>(p, k_tiles, s)
                              : launch_type<float>(p, k_tiles, s);

@@ -35,6 +35,18 @@
 // Rows of the sums are kSubBins + 4 floats apart: the 16-byte reads stay
 // aligned and the atomics of one row's channels spread over the banks.
 // Ids are clipped here, not by the caller (clipping keeps the tile order).
+//
+// The atomics add a bin's partial sums in an order that varies from run to
+// run, so its fp32 sum varies in its last bits.  The deterministic route
+// (kDet, Params::scale > 0: the route under torch.use_deterministic_
+// algorithms) keeps the sums as 64-bit integers in units of 1 / scale: each
+// partial (a group's fp32 sum of consecutive rows of one bin, the same
+// rows whatever the schedule) is rounded to an integer and added with an
+// integer atomic, which is exact, so the total does not depend on the
+// order.  The caller picks scale = 2^S with S such that the rows' summed
+// magnitudes stay below 2^62 units.  The sums are turned back into fp32
+// (the nearest float of the exact integer) before the epilogue; they take
+// 8 bytes a bin and channel of shared memory beside the fp32 ones.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -67,6 +79,7 @@ struct Params {
   void* out;
   long long row_stride, cloud_stride;
   int n_rows, n_bins, n_tiles, bins_per_cloud, n_store, C, n_feat;
+  double scale;  // > 0: the deterministic route's units a 1 (kDet)
 };
 
 // Shared memory of a block besides the sums: one chunk of matched rows,
@@ -81,9 +94,11 @@ struct Lists {
 };
 static_assert(kSubBins / 8 <= 256, "group indices fit a byte");
 
-// The sums' C rows and one row of 1 / max(count, 1) for the pillar means.
-inline int shared_bytes(int C) {
-  return (C + 1) * kRowStride * static_cast<int>(sizeof(float));
+// The sums' C rows and one row of 1 / max(count, 1) for the pillar means;
+// on the deterministic route first the C rows of integer sums.
+inline int shared_bytes(int C, bool det = false) {
+  return (C + 1) * kRowStride * static_cast<int>(sizeof(float)) +
+         (det ? C * kRowStride * static_cast<int>(sizeof(long long)) : 0);
 }
 
 // Opt a kernel in to ``bytes`` of dynamic shared memory and ask for the
@@ -211,11 +226,29 @@ __device__ __forceinline__ void write(const Params& p, const float* acc,
   }
 }
 
+// Adds a partial sum to bin ``cur`` of channel ``lane``: an fp32 atomic,
+// or on the deterministic route (acc_i) its rounded integer in 1 / scale
+// units, an exact integer atomic.
+template <bool kDet>
+__device__ __forceinline__ void add_partial(const Params& p, float* acc,
+                                            long long* acc_i, int lane,
+                                            int cur, float sum) {
+  if constexpr (kDet) {
+    atomicAdd(reinterpret_cast<unsigned long long*>(
+                  &acc_i[lane * kRowStride + cur]),
+              static_cast<unsigned long long>(
+                  __double2ll_rn(static_cast<double>(sum) * p.scale)));
+  } else {
+    atomicAdd(&acc[lane * kRowStride + cur], sum);
+  }
+}
+
 // Add the n listed rows to acc: a group of kGroup lanes takes one row, lane
 // c its channel c; a group walks entries group, group + kGroups, ... and
 // keeps a run of one bin in a register until the bin changes.
-template <int kGroup>
+template <int kGroup, bool kDet = false>
 __device__ __forceinline__ void add_rows(const Params& p, float* acc,
+                                         long long* acc_i,
                                          const Lists& lists, int n) {
   constexpr int kGroups = kThreads / kGroup;
   constexpr int kUnroll = 4;
@@ -240,21 +273,24 @@ __device__ __forceinline__ void add_rows(const Params& p, float* acc,
       if (b[u] == cur) {
         sum += v[u];
       } else {
-        if (cur >= 0 && active) atomicAdd(&acc[lane * kRowStride + cur], sum);
+        if (cur >= 0 && active)
+          add_partial<kDet>(p, acc, acc_i, lane, cur, sum);
         cur = b[u];
         sum = v[u];
       }
     }
   }
-  if (cur >= 0 && active) atomicAdd(&acc[lane * kRowStride + cur], sum);
+  if (cur >= 0 && active) add_partial<kDet>(p, acc, acc_i, lane, cur, sum);
 }
 
 // Sub-tile s of tile t: zero the sums, add the tile's rows that fall in the
 // sub-tile (a row of another tile is skipped, as the TPU kernel's global-id
-// compare skips it), write.  Every early return is block-uniform.
-template <typename OutT, int kGroup>
+// compare skips it), write.  Every early return is block-uniform.  kDet:
+// acc_i holds the integer sums (the deterministic route).
+template <typename OutT, int kGroup, bool kDet = false>
 __device__ __forceinline__ void sub_tile(const Params& p, int t, int s,
-                                         float* acc, Lists& lists) {
+                                         float* acc, Lists& lists,
+                                         long long* acc_i = nullptr) {
   const int base = t * kBinsPerTile + s * kSubBins;  // first global bin
   if (base >= p.n_bins) return;
   const int cloud = base / p.bins_per_cloud;
@@ -269,8 +305,13 @@ __device__ __forceinline__ void sub_tile(const Params& p, int t, int s,
   // the first chunk's ids are in flight while the sums are zeroed
   int next = start + threadIdx.x < end ? __ldg(p.ids + start + threadIdx.x)
                                        : 0;
-  for (int i = threadIdx.x; i < p.C * kRowStride / 4; i += kThreads)
-    reinterpret_cast<float4*>(acc)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if constexpr (kDet) {
+    for (int i = threadIdx.x; i < p.C * kRowStride; i += kThreads)
+      acc_i[i] = 0;
+  } else {
+    for (int i = threadIdx.x; i < p.C * kRowStride / 4; i += kThreads)
+      reinterpret_cast<float4*>(acc)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
   for (int i = threadIdx.x; i < kSubBins / 8; i += kThreads)
     lists.touched[i] = 0;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -300,8 +341,14 @@ __device__ __forceinline__ void sub_tile(const Params& p, int t, int s,
       lists.touched[b / 8] = 1;
     }
     __syncthreads();
-    add_rows<kGroup>(p, acc, lists, n);
+    add_rows<kGroup, kDet>(p, acc, acc_i, lists, n);
     __syncthreads();  // lists free for the next chunk; sums final after last
+  }
+  if constexpr (kDet) {  // the exact integer sums back to fp32
+    const double unit = 1.0 / p.scale;
+    for (int i = threadIdx.x; i < p.C * kRowStride; i += kThreads)
+      acc[i] = __double2float_rn(__ll2double_rn(acc_i[i]) * unit);
+    __syncthreads();
   }
   if (warp == 0) {  // list the touched groups
     int n = 0;

@@ -33,9 +33,16 @@
 //   - fp32 rows are read as they are and rounded to bf16 in registers
 //     (round to nearest even, as a cast), so no cast pass runs before it.
 // Reduction order varies from run to run, so sums agree with a sequential
-// sum up to fp32 reassociation.
+// sum up to fp32 reassociation.  The deterministic route (scale > 0, the
+// route under torch.use_deterministic_algorithms) adds each run's fp32 sum,
+// rounded to an integer in units of 1 / scale, into a 64-bit integer grid
+// with integer atomics: exact, so the grid does not depend on their order
+// (a run is the same rows whatever the schedule), and the caller turns it
+// into fp32.  The caller picks scale = 2^S such that a frame's summed
+// magnitudes stay below 2^62 units.
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -119,12 +126,27 @@ __device__ __forceinline__ void flush(float* cell, int o0, int o1,
 #endif
 }
 
-template <typename T>
+// The deterministic route's flush: each sum rounded to an integer in
+// 1 / scale units and added with an exact 64-bit integer atomic.
+__device__ __forceinline__ void flush(long long* cell, int o0, int o1,
+                                      float (&acc)[8], float (&total)[8],
+                                      double scale) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    atomicAdd(reinterpret_cast<unsigned long long*>(
+                  cell + (i < 4 ? o0 + i : o1 + i - 4)),
+              static_cast<unsigned long long>(
+                  __double2ll_rn(static_cast<double>(acc[i]) * scale)));
+}
+
+// kDet: the deterministic route, ``out`` a 64-bit integer grid in units
+// of 1 / scale; else an fp32 grid.
+template <typename T, bool kDet>
 __global__ void __launch_bounds__(kPoolThreads)
 patch_pool_kernel(const T* __restrict__ x, const int* __restrict__ coords,
-                  const uint8_t* __restrict__ kept, float* __restrict__ out,
+                  const uint8_t* __restrict__ kept, void* __restrict__ out,
                   int* __restrict__ drops, int N, int D, int fH, int fW,
-                  int WB, int nx, int ny, long long groups) {
+                  int WB, int nx, int ny, long long groups, double scale) {
   __shared__ int s_cell[kPoolWarps][kThreads];  // cell of each group row
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -192,7 +214,8 @@ patch_pool_kernel(const T* __restrict__ x, const int* __restrict__ coords,
   const int o0 = L::off0(s), o1 = L::off1(s);
   const T* col = x + (plane * fH * fW + wb * kUBlock + q) * kChan;
   const long long h_stride = (long long)fW * kChan;
-  float* frame = out + (size_t)f * nx * ny * kChan;
+  using Acc = typename std::conditional<kDet, long long, float>::type;
+  Acc* frame = static_cast<Acc*>(out) + (size_t)f * nx * ny * kChan;
   const int* cells = s_cell[warp] + q;
 
   float acc[8], total[8];
@@ -212,8 +235,12 @@ patch_pool_kernel(const T* __restrict__ x, const int* __restrict__ coords,
     for (int u = 0; u < kAhead; ++u) {
       if (cell[u] < 0) continue;
       if (cell[u] != run) {
-        if (run >= 0)
-          flush(frame + (size_t)run * kChan, o0, o1, acc, total);
+        if (run >= 0) {
+          if constexpr (kDet)
+            flush(frame + (size_t)run * kChan, o0, o1, acc, total, scale);
+          else
+            flush(frame + (size_t)run * kChan, o0, o1, acc, total);
+        }
         run = cell[u];
 #pragma unroll
         for (int i = 0; i < 8; ++i) acc[i] = 0.f;
@@ -221,14 +248,21 @@ patch_pool_kernel(const T* __restrict__ x, const int* __restrict__ coords,
       L::add(acc, v[u]);
     }
   }
-  if (run >= 0) flush(frame + (size_t)run * kChan, o0, o1, acc, total);
-#ifdef PATCH_POOL_LOADS_ONLY
   if (run >= 0) {
-    float* dst = frame + (size_t)run * kChan;
-    *reinterpret_cast<float4*>(dst + o0) =
-        make_float4(total[0], total[1], total[2], total[3]);
-    *reinterpret_cast<float4*>(dst + o1) =
-        make_float4(total[4], total[5], total[6], total[7]);
+    if constexpr (kDet)
+      flush(frame + (size_t)run * kChan, o0, o1, acc, total, scale);
+    else
+      flush(frame + (size_t)run * kChan, o0, o1, acc, total);
+  }
+#ifdef PATCH_POOL_LOADS_ONLY
+  if constexpr (!kDet) {
+    if (run >= 0) {
+      float* dst = frame + (size_t)run * kChan;
+      *reinterpret_cast<float4*>(dst + o0) =
+          make_float4(total[0], total[1], total[2], total[3]);
+      *reinterpret_cast<float4*>(dst + o1) =
+          make_float4(total[4], total[5], total[6], total[7]);
+    }
   }
 #endif
 }
@@ -281,25 +315,35 @@ patch_pool_bwd_kernel(const float* __restrict__ dout,
 
 // x (F, N, D, fH, fW, 64) bf16 (x_fp32 0) or fp32 (x_fp32 1), 16-byte
 // aligned; coords (F, N, D, fH, fW, 2) int32, 8-byte aligned; kept
-// (F, N, D, fH, fW) bool; out (F, nx, ny, 64) fp32 and drops (F,) int32,
+// (F, N, D, fH, fW) bool; out (F, nx, ny, 64) fp32 (scale > 0: int64, the
+// deterministic route's sums in 1 / scale units) and drops (F,) int32,
 // both zeroed by the caller.  fH * 4 <= 128.
 extern "C" int sf_patch_pool(const void* x, const int* coords,
-                             const uint8_t* kept, float* out, int* drops,
+                             const uint8_t* kept, void* out, int* drops,
                              int F, int N, int D, int fH, int fW, int nx,
-                             int ny, int x_fp32, void* stream) {
+                             int ny, int x_fp32, double scale, void* stream) {
   const int WB = (fW + kUBlock - 1) / kUBlock;
   const long long groups = (long long)F * N * D * WB;
   if (groups == 0) return 0;
   const unsigned blocks = (unsigned)((groups + kPoolWarps - 1) / kPoolWarps);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_fp32)
-    patch_pool_kernel<float><<<blocks, kPoolThreads, 0, st>>>(
+  const bool det = scale > 0;
+  if (x_fp32 && det)
+    patch_pool_kernel<float, true><<<blocks, kPoolThreads, 0, st>>>(
         static_cast<const float*>(x), coords, kept, out, drops, N, D, fH, fW,
-        WB, nx, ny, groups);
-  else
-    patch_pool_kernel<__nv_bfloat16><<<blocks, kPoolThreads, 0, st>>>(
+        WB, nx, ny, groups, scale);
+  else if (x_fp32)
+    patch_pool_kernel<float, false><<<blocks, kPoolThreads, 0, st>>>(
+        static_cast<const float*>(x), coords, kept, out, drops, N, D, fH, fW,
+        WB, nx, ny, groups, scale);
+  else if (det)
+    patch_pool_kernel<__nv_bfloat16, true><<<blocks, kPoolThreads, 0, st>>>(
         static_cast<const __nv_bfloat16*>(x), coords, kept, out, drops, N, D,
-        fH, fW, WB, nx, ny, groups);
+        fH, fW, WB, nx, ny, groups, scale);
+  else
+    patch_pool_kernel<__nv_bfloat16, false><<<blocks, kPoolThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), coords, kept, out, drops, N, D,
+        fH, fW, WB, nx, ny, groups, scale);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,6 +15,7 @@ planning branch and its metric are ROADMAP item 15.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import time
 from typing import Dict, Optional, Tuple
@@ -23,7 +24,7 @@ import numpy as np
 import torch
 
 from .config import get_cfg
-from .device import resolve_device
+from .device import pin_tf32, resolve_device, tf32_setting
 from .training.logging import capacity_warnings
 from .training.trainer import (LABEL_KEYS, build_trainer, eval_forward,
                                prepare_future_labels)
@@ -56,8 +57,10 @@ def get_eval_parser() -> argparse.ArgumentParser:
 def build_eval_state(args, cfg_mutator=None):
     """(cfg, checkpoint manager or None) from the parsed arguments: the
     checkpoint's own config when there is one, else --config-file and
-    opts."""
+    opts.  The evaluation CLIs' common setup: it pins TF32 off and prints
+    the setting."""
     from .training.checkpoint import CheckpointManager
+    print('tf32 ' + json.dumps(pin_tf32()), flush=True)
     if args.checkpoint:
         ckpt = CheckpointManager(args.checkpoint)
         cfg = ckpt.load_cfg()
@@ -191,6 +194,7 @@ def run_eval(cfg, ckpt, short_interval: bool = False, plot_dir=None,
     if t_fwd:
         print(f'mean forward time: {np.mean(t_fwd[1:] or t_fwd):.3f}s')
     results['forward_s'] = t_fwd
+    results['tf32'] = tf32_setting()
     results['states'] = metric_states(vehicle=metric_vehicle,
                                       panoptic=metric_panoptic,
                                       pedestrian=metric_pedestrian)

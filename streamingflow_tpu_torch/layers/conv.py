@@ -57,26 +57,61 @@ def resize_nearest(x: torch.Tensor, out_hw) -> torch.Tensor:
     return F.interpolate(x, size=tuple(out_hw), mode='nearest')
 
 
+class ConvTranspose2d(nn.Conv2d):
+    """The flax ``ConvTranspose`` (``transpose_kernel=False``): the input
+    dilated by ``stride`` with zeros, padded by (``pad_lo``, ``pad_hi``) on
+    each spatial axis and correlated with the kernel as it is stored.  The
+    weight keeps the layout of a Conv2d (O, I, kH, kW), so it converts by
+    the Conv2d rule (convert.py); the forward is ``conv_transpose2d`` with
+    that kernel flipped and its channel axes swapped, padding
+    ``k - 1 - pad_lo`` and output padding ``pad_hi - pad_lo``.  Output size
+    (H - 1) stride + 1 + pad_lo + pad_hi - k + 1."""
+
+    def __init__(self, cin: int, cout: int, k: int, stride: int,
+                 pad_lo: int, pad_hi: int, bias: bool = False):
+        super().__init__(cin, cout, k, bias=bias)
+        self.t_stride = stride
+        self.t_padding = k - 1 - pad_lo
+        self.t_output_padding = pad_hi - pad_lo
+        if self.t_padding < 0 or not 0 <= self.t_output_padding < stride:
+            raise ValueError(f'padding ({pad_lo}, {pad_hi}) of a k={k}, '
+                             f'stride {stride} transposed conv')
+
+    def forward(self, x):
+        w = self.weight.flip(2, 3).transpose(0, 1)
+        return F.conv_transpose2d(x, w, self.bias, stride=self.t_stride,
+                                  padding=self.t_padding,
+                                  output_padding=self.t_output_padding)
+
+
 class ConvBlock(nn.Module):
-    """Conv (or stride-1 'transposed' conv) -> optional BN -> activation.
+    """Conv (or transposed conv) -> optional norm -> activation.
 
     The flax block's stride-1 ConvTranspose with symmetric padding is a
-    plain correlation with the same kernel, so both spell F.conv2d here;
-    only the submodule name differs."""
+    plain correlation with the same kernel, so it spells F.conv2d here
+    (only the submodule name differs); a strided one correlates the
+    zero-dilated input (:class:`ConvTranspose2d`): 2H - 1 rows out of H for
+    k 3, stride 2.  ``norm``: 'bn', 'in' (instance norm: GroupNorm with one
+    channel a group, scale and bias, eps 1e-5) or 'none'."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 3,
                  stride: int = 1, norm: str = 'bn', activation: str = 'relu',
                  bias: bool = False, transpose: bool = False):
         super().__init__()
+        k = kernel_size
         if transpose and stride != 1:
-            raise NotImplementedError('strided transposed ConvBlock')
-        conv = conv2d(cin, cout, kernel_size, stride=stride, bias=bias)
+            conv = ConvTranspose2d(cin, cout, k, stride, k // 2, k // 2,
+                                   bias=bias)
+        else:
+            conv = conv2d(cin, cout, k, stride=stride, bias=bias)
         self.conv_name = 'ConvTranspose_0' if transpose else 'Conv_0'
         self.add_module(self.conv_name, conv)
         if norm == 'bn':
             self.BatchNorm_0 = batch_norm(cout)
+        elif norm == 'in':
+            self.GroupNorm_0 = nn.GroupNorm(cout, cout, eps=1e-5)
         elif norm != 'none':
-            raise NotImplementedError(f'norm {norm!r}')
+            raise ValueError(f'Invalid norm {norm}')
         self.norm = norm
         self.act = make_activation(activation)
 
@@ -84,7 +119,61 @@ class ConvBlock(nn.Module):
         x = getattr(self, self.conv_name)(x)
         if self.norm == 'bn':
             x = self.BatchNorm_0(x)
+        elif self.norm == 'in':
+            x = self.GroupNorm_0(x)
         return x if self.act is None else self.act(x)
+
+
+class Bottleneck(nn.Module):
+    """1x1 down-projection -> k x k conv (plain, stride 2, or transposed x2)
+    -> 1x1 up-projection, each with BN and ReLU, optional dropout, and a
+    residual: the identity, or (bilinear x2 / 2x2 max pool) -> 1x1 conv ->
+    BN when the width or the size changes.  The upsampling conv is the flax
+    ConvTranspose of stride 2 padded (k - 1 - k // 2, k - 1): 2H x 2W out
+    of H x W."""
+
+    def __init__(self, cin: int, cout: Optional[int] = None,
+                 kernel_size: int = 3, upsample: bool = False,
+                 downsample: bool = False, dropout: float = 0.0):
+        super().__init__()
+        cout = cout or cin
+        mid = cin // 2
+        k, pad = kernel_size, kernel_size // 2
+        self.upsample, self.downsample = upsample, downsample
+        self.Conv_0 = conv2d(cin, mid, 1)
+        if upsample:
+            self.ConvTranspose_0 = ConvTranspose2d(mid, mid, k, 2, k - 1 - pad,
+                                                   k - 1)
+            mid_conv, up, skip = 'ConvTranspose_0', 'Conv_1', 'Conv_2'
+        else:
+            self.Conv_1 = conv2d(mid, mid, k, stride=2 if downsample else 1)
+            mid_conv, up, skip = 'Conv_1', 'Conv_2', 'Conv_3'
+        self.mid_conv, self.up_conv = mid_conv, up
+        self.add_module(up, conv2d(mid, cout, 1))
+        for i in range(3):
+            self.add_module(f'BatchNorm_{i}', batch_norm(mid if i < 2
+                                                         else cout))
+        self.dropout = Dropout(dropout)
+        self.identity = cout == cin and not downsample and not upsample
+        if not self.identity:
+            self.skip_conv = skip
+            self.add_module(skip, conv2d(cin, cout, 1))
+            self.BatchNorm_3 = batch_norm(cout)
+
+    def forward(self, x):
+        h = F.relu(self.BatchNorm_0(self.Conv_0(x)))
+        h = F.relu(self.BatchNorm_1(getattr(self, self.mid_conv)(h)))
+        h = F.relu(self.BatchNorm_2(getattr(self, self.up_conv)(h)))
+        h = self.dropout(h)
+        if self.identity:
+            return h + x
+        skip = x
+        if self.upsample:
+            skip = resize_bilinear(skip, (x.shape[2] * 2, x.shape[3] * 2))
+        elif self.downsample:
+            skip = F.max_pool2d(skip, 2, 2)
+        skip = self.BatchNorm_3(getattr(self, self.skip_conv)(skip))
+        return h + skip
 
 
 class UpsamplingConcat(nn.Module):

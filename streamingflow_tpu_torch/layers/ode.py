@@ -45,7 +45,9 @@ class GRUODEBayes(nn.Module):
             inp (B, 1, C, H, W), target_times (B, E_tgt), generator)
     -> decoded per-target states (B, E_tgt, C, H, W).  Times are seconds
     relative to the present frame.  ``generator`` feeds the latent sampling
-    when ``stochastic``."""
+    when ``stochastic``.  ``skipco`` builds the decoder for encoder skips,
+    which the tape does not hand it: a forward raises, as the JAX module's
+    does (its SmallDecoder asserts)."""
 
     # the global batch this forward's batch is a shard of: the noise is
     # drawn at its shape (layers/trainmode.py::set_shard)

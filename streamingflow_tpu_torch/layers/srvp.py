@@ -52,36 +52,53 @@ class SmallEncoder(nn.Module):
             c = w
         self.ConvBlock_0 = ConvBlock(c, nh, 3, activation='tanh')
 
-    def forward(self, x):
+    def forward(self, x, return_skip: bool = False):
+        """With ``return_skip`` also each ResBlock's output, the last
+        first (the order SmallDecoder takes them)."""
         h = x
+        skips = []
         for i in range(5):
             if i in (1, 2):
                 h = F.max_pool2d(h, 2, 2)
             h = getattr(self, f'ResBlock_{i}')(h)
-        return self.ConvBlock_0(h)
+            skips.append(h)
+        h = self.ConvBlock_0(h)
+        return (h, skips[::-1]) if return_skip else h
 
 
 class SmallDecoder(nn.Module):
-    """4x-upsampling decoder mirroring SmallEncoder (no skip connections)."""
+    """4x-upsampling decoder mirroring SmallEncoder.  With ``skip`` each
+    ResBlock takes the matching encoder output (SmallEncoder's
+    ``return_skip``, of base width ``nf``) concatenated behind its input,
+    which widens its input channels."""
 
     def __init__(self, cin: int, nh: int, nf: int, skip: bool = False):
         super().__init__()
-        if skip:
-            raise NotImplementedError('SmallDecoder skip connections')
+        self.skip = skip
         self.ConvBlock_0 = ConvBlock(cin, nf * 4, transpose=True,
                                      activation='lrelu')
         widths = [nf * 2, nf * 2, nf * 2, nf, nf]
+        # the encoder's widths, the last first
+        skip_widths = [nf * 4, nf * 2, nf * 2, nf * 2, nf]
         c = nf * 4
         for i, w in enumerate(widths):
-            self.add_module(f'ResBlock_{i}', ResBlock(c, w))
+            self.add_module(f'ResBlock_{i}',
+                            ResBlock(c + (skip_widths[i] if skip else 0), w))
             c = w
         self.ConvBlock_1 = ConvBlock(c, nf, 3, activation='lrelu')
         self.ConvBlock_2 = ConvBlock(nf, nh, 3, transpose=True, bias=True,
                                      norm='none', activation='lrelu')
 
-    def forward(self, z):
+    def forward(self, z, skip=None):
+        if (skip is None) != (not self.skip):
+            raise ValueError(
+                f'a SmallDecoder built with skip={self.skip} called '
+                f'{"without" if skip is None else "with"} encoder skips (the '
+                f'JAX module asserts the same)')
         h = self.ConvBlock_0(z)
         for i in range(5):
+            if skip is not None:
+                h = torch.cat([h, skip[i]], dim=1)
             h = getattr(self, f'ResBlock_{i}')(h)
             if i in (2, 3):
                 h = resize_nearest(h, (h.shape[2] * 2, h.shape[3] * 2))

@@ -12,7 +12,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .conv import Bottleblock, batch_norm, conv2d, resize_bilinear
+from .conv import (Bottleblock, ConvNeXtBlock, batch_norm, conv2d,
+                   resize_bilinear)
 
 
 class GRUGates(nn.Module):
@@ -110,6 +111,49 @@ class DualGRUCell(nn.Module):
         gate = torch.softmax(self.trusting_gate_conv(gate), dim=1)
         mixed = rnn_state2 * gate[:, 0:1] + rnn_state1 * gate[:, 1:2]
         return mixed - state if self.return_delta else mixed
+
+
+class BiGRU(nn.Module):
+    """Bidirectional conv GRU over a (B, T, C, H, W) sequence, the state of
+    each direction started from the first (last) frame, a Bottleblock
+    decoder a direction at each step, then a Bottleblock over both and two
+    ConvNeXt blocks.  Each cell's input half is convolved for all steps
+    at once (GRUGates.precompute_x), and the decoders run batched over time
+    after the recurrence."""
+
+    def __init__(self, in_channels: int):
+        super().__init__()
+        c = in_channels
+        self.cell_fwd = GRUGates(c, c)
+        self.cell_bwd = GRUGates(c, c)
+        self.dec_fwd = Bottleblock(c, c)
+        self.dec_bwd = Bottleblock(c, c)
+        self.Bottleblock_0 = Bottleblock(2 * c, c)
+        self.ConvNeXtBlock_0 = ConvNeXtBlock(c)
+        self.ConvNeXtBlock_1 = ConvNeXtBlock(c)
+
+    def forward(self, x):
+        b, s, c, h, w = x.shape
+        flat = x.reshape(b * s, c, h, w)
+        pre = [tuple(v.reshape(b, s, *v.shape[1:])
+                     for v in cell.precompute_x(flat))
+               for cell in (self.cell_fwd, self.cell_bwd)]
+        state1, state2 = x[:, 0], x[:, -1]
+        outs1, outs2 = [], []
+        for t in range(s):
+            r = s - t - 1
+            state1 = self.cell_fwd(None, state1,
+                                   x_pre=(pre[0][0][:, t], pre[0][1][:, t]))
+            state2 = self.cell_bwd(None, state2,
+                                   x_pre=(pre[1][0][:, r], pre[1][1][:, r]))
+            outs1.append(state1)
+            outs2.append(state2)
+        st1 = torch.stack(outs1, 1).reshape(b * s, -1, h, w)
+        st2 = torch.stack(outs2[::-1], 1).reshape(b * s, -1, h, w)
+        out = torch.cat([self.dec_fwd(st1), self.dec_bwd(st2)], dim=1)
+        out = self.ConvNeXtBlock_1(self.ConvNeXtBlock_0(
+            self.Bottleblock_0(out)))
+        return out.reshape(b, s, *out.shape[1:])
 
 
 class CausalConv3d(nn.Module):

@@ -26,11 +26,12 @@ from ..layers.conv import conv2d
 from ..layers.trainmode import remat, set_generator
 from ..ops.lift_splat import projection_to_birds_eye_view
 from .decoder import Decoder
+from .distributions import DistributionModule, distribution_forward
 from .encoder import Encoder
 from .future_prediction import FuturePredictionODE
 from .lidar_encoder import LidarBEVEncoder
 from .pillar_encoder import PillarBEVEncoder
-from .temporal_model import TemporalModel
+from .temporal_model import TemporalModel, TemporalModelIdentity
 
 
 class StreamingFlow(nn.Module):
@@ -41,9 +42,6 @@ class StreamingFlow(nn.Module):
             raise NotImplementedError(
                 'PLANNING.ENABLED is not ported yet (ROADMAP.md, Queue 1 '
                 'item 15: planning)')
-        if cfg.MODEL.TEMPORAL_MODEL.NAME == 'identity':
-            raise NotImplementedError(
-                "TEMPORAL_MODEL.NAME='identity' is not ported yet")
         self.cfg = cfg
         self._generator: Optional[torch.Generator] = None
         (self.bev_resolution, self.bev_start_position,
@@ -72,7 +70,10 @@ class StreamingFlow(nn.Module):
                 enc.OUT_CHANNELS, self.depth_channels, enc.NAME,
                 enc.DOWNSAMPLE, enc.USE_DEPTH_DISTRIBUTION)
             cam_in = enc.OUT_CHANNELS + (6 if tm.INPUT_EGOPOSE else 0)
-            self.temporal_model = TemporalModel(cam_in, **temporal_kw)
+            if tm.NAME == 'identity':
+                self.temporal_model = TemporalModelIdentity()
+            else:
+                self.temporal_model = TemporalModel(cam_in, **temporal_kw)
 
         if self.use_lidar:
             se = cfg.MODEL.SPARSE_ENCODER
@@ -103,6 +104,15 @@ class StreamingFlow(nn.Module):
                 max_gap_seconds=fp.MAX_GAP_SECONDS,
                 stochastic=cfg.PROBABILISTIC.ENABLED)
 
+        self.latent_dim = cfg.MODEL.DISTRIBUTION.LATENT_DIM
+        if cfg.PROBABILISTIC.ENABLED:
+            # the latent head: the forward never calls it (nor does the
+            # reference's), so it is the distribution_forward method, and a
+            # JAX tree made by init has no leaves for it (convert.py)
+            self.present_distribution = DistributionModule(
+                tm.START_OUT_CHANNELS, self.latent_dim,
+                cfg.PROBABILISTIC.METHOD)
+
         self.decoder = Decoder(
             tm.START_OUT_CHANNELS,
             n_classes=len(cfg.SEMANTIC_SEG.VEHICLE.WEIGHTS),
@@ -120,8 +130,9 @@ class StreamingFlow(nn.Module):
                 and torch.is_grad_enabled())
 
     def _run(self, module, *args):
-        """``module(*args)``, rematerialised under MODEL.REMAT."""
-        if self._remat_on():
+        """``module(*args)``, rematerialised under MODEL.REMAT (a module
+        without parameters, the identity temporal model, runs as it is)."""
+        if self._remat_on() and next(module.parameters(), None) is not None:
             return remat(module, module, self._generator, *args)
         return module(*args)
 
@@ -131,6 +142,27 @@ class StreamingFlow(nn.Module):
         int32 device scalars; empty on the other backbones."""
         return dict(getattr(getattr(self, 'lidar_encoder', None),
                             'last_diagnostics', {}))
+
+    def distribution_forward(self, present_features,
+                             min_log_sigma: float = -5.0,
+                             max_log_sigma: float = 5.0,
+                             generator: Optional[torch.Generator] = None
+                             ) -> torch.Tensor:
+        """A latent sampled from the present state (B, 1, H, W, C),
+        broadcast over space: (B, 1, H, W, latent).  Noise only in train
+        mode, from ``generator`` (the forward's, when None); in eval mode
+        the mean."""
+        params = self.present_distribution(present_features)
+        gen = None
+        if self.training:
+            gen = generator if generator is not None else self._generator
+            if gen is None:
+                raise ValueError('a train-mode distribution_forward draws '
+                                 'noise: give it a generator')
+        return distribution_forward(
+            params, self.latent_dim, self.cfg.PROBABILISTIC.METHOD,
+            tuple(present_features.shape[2:4]), gen,
+            min_log_sigma=min_log_sigma, max_log_sigma=max_log_sigma)
 
     # ---------------------------------------------------------------- camera
     def calculate_birds_eye_view_features(self, image, intrinsics,

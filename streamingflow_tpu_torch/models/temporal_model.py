@@ -55,3 +55,11 @@ class TemporalModel(nn.Module):
         b, c, t, h, w = x.shape
         flat = self.final_conv(x.transpose(1, 2).reshape(b * t, c, h, w))
         return flat.reshape(b, t, *flat.shape[1:])
+
+
+class TemporalModelIdentity(nn.Module):
+    """Pass-through for TEMPORAL_MODEL.NAME 'identity' (a receptive field of
+    one frame)."""
+
+    def forward(self, x):
+        return x

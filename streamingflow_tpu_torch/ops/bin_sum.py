@@ -179,13 +179,14 @@ def launch(data: torch.Tensor, ids: torch.Tensor, bounds: torch.Tensor,
            out: torch.Tensor, n_bins: int, bins_per_cloud: int, n_store: int,
            pillar_features: Optional[int] = None,
            k_tiles: Optional[int] = None,
-           defines: Tuple[str, ...] = ()) -> None:
+           defines: Tuple[str, ...] = (), scale: float = 0.0) -> None:
     """Run csrc/bin_sum.cu (``k_tiles`` None) or csrc/bin_sum_grouped.cu on
     prepared inputs: contiguous fp32 ``data`` (P, C), int32 ``ids`` grouped
     by tile, ``bounds`` = :func:`tile_bounds` (ids, n_bins), ``out``
     (clouds, C, row length >= n_store) with unit stride along the bins.
     ``defines`` build a variant of the source (cuda_lib; the experiment
-    tool's)."""
+    tool's).  ``scale`` > 0 (csrc/bin_sum.cu only): the deterministic
+    route, its sums exact integers in units of 1 / scale."""
     global launches, launches_grouped
     if not all(x.is_cuda for x in (data, ids, bounds, out)):
         raise ValueError('bin_sum kernel takes CUDA tensors')
@@ -221,7 +222,7 @@ def launch(data: torch.Tensor, ids: torch.Tensor, bounds: torch.Tensor,
     stream = torch.cuda.current_stream(data.device).cuda_stream
     if k_tiles is None:
         cuda_lib.check('bin_sum', cuda_lib.kernel(
-            'bin_sum', defines=defines)(*args, stream))
+            'bin_sum', defines=defines)(*args, float(scale), stream))
         launches += 1
     else:
         cuda_lib.check('bin_sum_grouped', cuda_lib.kernel(
@@ -233,7 +234,14 @@ def _bin_sum_cuda(data, ids, n_clouds, bins_per_cloud, n_store,
                   pillar_features, out_dtype, presorted, k_tiles):
     """Sort if asked, build the tile bounds and the output and launch;
     returns (n_clouds, C, n_store), a view of rows padded to 8 bins.
-    :func:`launch` checks the prepared tensors."""
+    :func:`launch` checks the prepared tensors.  Its shared-memory atomic
+    adds sum in an order that varies from run to run; under
+    ``torch.use_deterministic_algorithms`` K1 takes its deterministic route
+    (exact integer sums: the same bits every run), and K1', which has none,
+    warns or raises as ATen does."""
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    if deterministic and k_tiles:
+        cuda_lib.alert_not_deterministic('bin_sum_grouped')
     if data.dim() != 2 or ids.shape != data.shape[:1]:
         raise ValueError(f'bin_sum: data {tuple(data.shape)} and ids '
                          f'{tuple(ids.shape)} must be (P, C) and (P,)')
@@ -255,6 +263,11 @@ def _bin_sum_cuda(data, ids, n_clouds, bins_per_cloud, n_store,
         data = data[order]
     out = torch.empty(n_clouds, data.shape[1], padded_bins(n_store),
                       dtype=out_dtype, device=data.device)
+    route = {}
+    if deterministic and not k_tiles:
+        # a bin sums at most every row's value of its channel
+        route['scale'] = cuda_lib.fixed_point_scale(
+            float(data.abs().amax()) * data.shape[0] if data.numel() else 0.0)
     launch(data, ids, tile_bounds(ids, n_bins), out, n_bins, bins_per_cloud,
-           n_store, pillar_features, k_tiles)
+           n_store, pillar_features, k_tiles, **route)
     return out[..., :n_store]

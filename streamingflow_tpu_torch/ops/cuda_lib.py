@@ -9,16 +9,28 @@ flags, so an edited source rebuilds.
 ``defines`` (``NAME=VALUE`` strings, passed as ``-D``) build a variant of a
 source beside the shipped one; only the experiment tools ask for them.
 Nothing here runs when the package is imported.
+
+A kernel whose fp32 sums land in an order that varies from run to run
+(atomic adds: K1's bin sums, K2's pool) has a deterministic route that the
+wrapper takes under ``torch.use_deterministic_algorithms``: it sums exact
+integers in units of 1 / :func:`fixed_point_scale`.  A kernel without one
+(K1' of the experiment tool) calls :func:`alert_not_deterministic`, which
+warns (``warn_only``) or raises there with ATen's own message, as ATen's
+ops without a deterministic route do.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
+import warnings
 from pathlib import Path
 from typing import Dict, Iterable, Optional, Tuple
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / 'csrc'
@@ -26,18 +38,20 @@ BUILD_DIR = _PKG / '_build'
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_double
 # C entry points of each source and their argument types (pointers and the
 # stream as c_void_p: a plain int argument would cut them to 32 bits)
 SIGNATURES: Dict[str, Dict[str, list]] = {
     'bin_sum': {'sf_bin_sum':
-                [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I, _I, _I, _P]},
+                [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I, _I, _I, _D,
+                 _P]},
     'bin_sum_grouped': {'sf_bin_sum_grouped':
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I, _I,
                          _I, _I, _P]},
     'patch_pool': {
         'sf_patch_pool':
-            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _D, _P],
         'sf_patch_pool_bwd':
             [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
     'patch_pool_ablation': {
@@ -139,3 +153,28 @@ def check(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f'CUDA kernel {name} failed to launch: '
                            f'cudaError {err}')
+
+
+def alert_not_deterministic(caller: str) -> None:
+    """Warn or raise, as ATen does, when deterministic algorithms are asked
+    for (``torch.use_deterministic_algorithms``) and ``caller``'s kernel
+    sums in an order that varies from run to run; nothing otherwise."""
+    if not torch.are_deterministic_algorithms_enabled():
+        return
+    text = f'{caller} does not have a deterministic implementation, but ' \
+        f"you set 'torch.use_deterministic_algorithms(True"
+    if torch.is_deterministic_algorithms_warn_only_enabled():
+        warnings.warn(text + ", warn_only=True)'.", stacklevel=3)
+    else:
+        raise RuntimeError(text + ")'.")
+
+
+def fixed_point_scale(bound: float) -> float:
+    """2^S for a deterministic route's integer sums: the largest S at which
+    ``bound``, a bound on the summed magnitudes of everything one integer
+    sum may take, stays below 2^61 units of 1 / 2^S (int64 sums with room
+    for the roundings).  Raises for a bound that is not finite."""
+    if not math.isfinite(bound):
+        raise ValueError(f'a deterministic sum of values bounded by {bound}')
+    exponent = math.frexp(bound)[1] if bound > 0 else -60
+    return 2.0 ** min(61 - exponent, 120)

@@ -226,26 +226,46 @@ def kernel_rows(x: torch.Tensor, coords: torch.Tensor,
     return x
 
 
-def launch(x, coords, kept, out, drops, nx, ny, defines=()):
+def launch(x, coords, kept, out, drops, nx, ny, defines=(), scale=0.0):
     """One forward launch on prepared inputs (:func:`kernel_rows`; ``out``
     and ``drops`` zeroed), of csrc/patch_pool.cu built with ``defines``.
-    Counts nothing: the wrapper counts its launches."""
+    ``scale`` > 0: the deterministic route, ``out`` int64 sums in units of
+    1 / scale.  Counts nothing: the wrapper counts its launches."""
     f, n, d, fh, fw, _ = x.shape
+    if out.dtype != (torch.int64 if scale > 0 else torch.float32):
+        raise ValueError(f'patch_pool kernel: a {out.dtype} grid for scale '
+                         f'{scale}')
     err = cuda_lib.kernel('patch_pool', 'sf_patch_pool', tuple(defines))(
         x.data_ptr(), coords.data_ptr(), kept.data_ptr(), out.data_ptr(),
         drops.data_ptr(), f, n, d, fh, fw, nx, ny,
-        int(x.dtype == torch.float32),
+        int(x.dtype == torch.float32), float(scale),
         torch.cuda.current_stream(x.device).cuda_stream)
     cuda_lib.check('patch_pool', err)
 
 
 def _patch_pool_cuda(x, coords, kept, nx, ny):
+    """The kernel: its float4 reductions into the grid land in an order
+    that varies from run to run; under ``torch.use_deterministic_algorithms``
+    it takes its deterministic route (an exact int64 grid, the same bits
+    every run), turned into fp32 here."""
     global launches, launches_fp32
     x = kernel_rows(x, coords, kept)
-    out = torch.zeros(x.shape[0], nx, ny, KERNEL_CHANNELS,
-                      dtype=torch.float32, device=x.device)
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    shape = (x.shape[0], nx, ny, KERNEL_CHANNELS)
+    out = torch.zeros(shape, dtype=torch.int64 if deterministic
+                      else torch.float32, device=x.device)
     drops = torch.zeros(x.shape[0], dtype=torch.int32, device=x.device)
-    launch(x, coords, kept, out, drops, nx, ny)
+    scale = 0.0
+    if deterministic:
+        # a cell sums at most every row of its frame, each rounded to bf16
+        # (at most 2^-8 above its value)
+        rows = x[0].numel() // KERNEL_CHANNELS
+        scale = cuda_lib.fixed_point_scale(
+            float(x.abs().amax()) * (1 + 2 ** -8) * rows if x.numel()
+            else 0.0)
+    launch(x, coords, kept, out, drops, nx, ny, scale=scale)
     launches += 1
     launches_fp32 += int(x.dtype == torch.float32)
+    if deterministic:
+        out = (out.double() * (1.0 / scale)).float()
     return out, drops

@@ -135,6 +135,17 @@ def _latencies(P, model, cfg, dev, n_requests, counter=None):
     return out
 
 
+def _pin_tf32():
+    """This checkout's device.pin_tf32 (an older package under test may not
+    have it): TF32 off for matmuls and cuDNN convolutions in both turns."""
+    spec = importlib.util.spec_from_file_location(
+        'ab_device', os.path.join(_HERE, 'streamingflow_tpu_torch',
+                                  'device.py'))
+    device = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(device)
+    return device.pin_tf32()
+
+
 def _smoke():
     """This checkout's chip_smoke.py, for the inputs it makes."""
     spec = importlib.util.spec_from_file_location(
@@ -151,8 +162,7 @@ def measure_spconv(root, n_requests):
     import streamingflow_tpu_torch as P
     from streamingflow_tpu_torch.data import flagship_config
     from streamingflow_tpu_torch.ops import winfuse as WF
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    _pin_tf32()
     dev = torch.device('cuda', 0)
     smoke = _smoke()
     result = {'root': root, 'package': os.path.dirname(P.__file__)}
@@ -191,8 +201,7 @@ def measure(root, n_requests, n_train_steps):
     from streamingflow_tpu_torch.ops import bin_sum as B
     from streamingflow_tpu_torch.ops import cuda_lib
     from streamingflow_tpu_torch.ops import patch_pool as PP
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    _pin_tf32()
     dev = torch.device('cuda', 0)
     cfg = flagship_config()
     se = cfg.MODEL.SPARSE_ENCODER

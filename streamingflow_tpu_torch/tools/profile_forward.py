@@ -50,6 +50,8 @@ from collections import defaultdict
 import torch
 import torch.utils.checkpoint
 
+from ..device import pin_tf32
+
 STAGES = ('encoder', 'temporal_model', 'lidar_encoder', 'lidar_reduce',
           'temporal_model_lidar', 'future_prediction', 'decoder')
 
@@ -90,8 +92,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('profile_forward: CUDA is not available')
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    pin_tf32()
     dev = torch.device('cuda', 0)
     cfg = flagship_config(backbone=args.backbone)
     cfg.MODEL.SPARSE_ENCODER.REMAT_LADDER = args.remat_ladder == 'on'

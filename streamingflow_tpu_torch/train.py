@@ -37,6 +37,7 @@ import torch.distributed as dist
 
 from .config import get_cfg, get_parser
 from .data.dataloader import prepare_dataloaders
+from .device import pin_tf32
 from .evaluate import OUTPUT_KEYS, forward_and_labels
 from .layers.trainmode import BatchShard
 from .parallel import (complete_batches, init_distributed, make_mesh,
@@ -104,8 +105,8 @@ def _to_device(batch: Dict, dev: torch.device) -> Dict:
 def main(argv: Optional[list] = None) -> Dict:
     """Run the training CLI; returns the trainer, the checkpoint directory,
     the per-step losses, the last validation metrics and their metric
-    states, the profiler and the rank's data-parallel group (a rank that
-    takes no step returns its group only)."""
+    states, the profiler, the rank's data-parallel group and the TF32
+    setting (a rank that takes no step returns the last two only)."""
     parser = get_parser()
     parser.add_argument('--device', default='cuda',
                         help="'cuda' (default) or 'cpu'")
@@ -115,6 +116,8 @@ def main(argv: Optional[list] = None) -> Dict:
                              "default; 'gloo' lets ranks share one card")
     args = parser.parse_args(argv)
     cfg = get_cfg(args)
+    tf32 = pin_tf32()
+    print('tf32 ' + json.dumps(tf32), flush=True)
     owned = not dist.is_initialized()
     dev = init_distributed(args.device, args.dist_backend)
     group = make_mesh(cfg.BATCHSIZE, device=dev)
@@ -123,8 +126,8 @@ def main(argv: Optional[list] = None) -> Dict:
             print(f'rank {dist.get_rank()}: a global batch of '
                   f'{cfg.BATCHSIZE} shards over {group.world} rank(s); this '
                   f'rank takes no step', flush=True)
-            return {'group': group}
-        return _fit(cfg, dev, group)
+            return {'group': group, 'tf32': tf32}
+        return {**_fit(cfg, dev, group), 'tf32': tf32}
     finally:
         if owned and dist.is_initialized():
             dist.destroy_process_group()

@@ -10,7 +10,7 @@ Layout of a checkpoint directory::
     config.json              cfg.to_dict() of the run, as the JAX package
     <step>/checkpoint.pt     torch.save of {'format', 'step',
                              'optimizer_step', 'model', 'optimizer',
-                             'generator'}
+                             'generator', 'tf32'}
 
 ``step`` is the directory's label (``train`` labels a checkpoint with the
 epochs done), ``optimizer_step`` the trainer's count of optimizer steps.
@@ -18,7 +18,8 @@ epochs done), ``optimizer_step`` the trainer's count of optimizer steps.
 buffers), ``optimizer`` Adam's state_dict (``optimizer`` and
 ``optimizer_step`` are None in a checkpoint converted from JAX weights,
 convert.save_flax_variables_as_checkpoint), ``generator``
-the state of the run's explicit torch.Generator (or None).  All tensors are
+the state of the run's explicit torch.Generator (or None), ``tf32`` the
+writing process's TF32 flags (device.py::tf32_setting).  All tensors are
 on the CPU, and each file loads with ``torch.load(weights_only=True)``.  A
 step is written under a temporary name and renamed into place, so a run cut
 while saving leaves the steps before it, never a half-written one.  The JAX
@@ -39,6 +40,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from ..config import Config
+from ..device import tf32_setting
 from ..parallel.collect import barrier, broadcast_object
 
 FORMAT = 'streamingflow_tpu_torch'
@@ -114,7 +116,8 @@ class CheckpointManager:
                                       else int(optimizer_step)),
                    'model': _cpu(state['model']),
                    'optimizer': _cpu(state.get('optimizer')),
-                   'generator': _cpu(state.get('generator'))}
+                   'generator': _cpu(state.get('generator')),
+                   'tf32': tf32_setting()}
         with open(os.path.join(tmp, FILENAME), 'wb') as f:
             torch.save(payload, f)
             f.flush()

@@ -1,8 +1,10 @@
 """The PyTorch port stands alone: no file of streamingflow_tpu_torch/ nor
-chip_smoke.py imports JAX, flax, orbax, OpenCV or the JAX package, and PIL
-only inside the functions that use it where it is installed; importing the
-port needs neither JAX nor PyYAML; and its entry points and CLIs do not
-fall back to the CPU when CUDA is absent."""
+chip_smoke.py imports JAX, flax, orbax, OpenCV or the JAX package, no file
+of the port the repo's tools/ or tests/, chip_smoke.py of tests/ only the
+numpy-only torch_reference_names.py, and PIL only inside the functions that
+use it where it is installed; importing the port needs neither JAX nor
+PyYAML; and its entry points and CLIs do not fall back to the CPU when CUDA
+is absent."""
 import ast
 import os
 import subprocess
@@ -42,11 +44,31 @@ def test_no_port_file_imports_jax_or_the_jax_package():
             'visualisation.py', 'nuscenes.py', 'nuscenes_sdk.py',
             'labels.py', 'lyft.py', 'sampler.py', 'dataloader.py',
             'raster.py', 'mini_nuscenes.py', 'mesh.py', 'collect.py',
-            'launch.py', 'dryrun_multichip.py'} <= names
+            'launch.py', 'dryrun_multichip.py', 'torch_convert.py',
+            'convert_checkpoint.py', 'rules_prediction_lc_ode_variable.py',
+            'distributions.py', 'device.py'} <= names
     bad = [(str(p.relative_to(ROOT)), name) for p in files
            for name in _imports(p)
            if name.split('.')[0] in FORBIDDEN]
     assert not bad, bad
+
+
+def test_port_imports_neither_the_repos_tools_nor_its_tests():
+    """The repo's tools/ and tests/ are no packages of the port: no port
+    file imports one of their modules (its own streamingflow_tpu_torch.tools
+    is relative or fully named); chip_smoke.py takes from tests/ only the
+    reference-name inverse, which imports numpy and re alone."""
+    repo_modules = {p.stem for d in ('tools', 'tests')
+                    for p in (ROOT / d).glob('*.py')} | {'tools', 'tests'}
+    files = sorted((ROOT / 'streamingflow_tpu_torch').rglob('*.py'))
+    bad = [(str(p.relative_to(ROOT)), name) for p in files
+           for name in _imports(p) if name.split('.')[0] in repo_modules]
+    assert not bad, bad
+    smoke = {n.split('.')[0] for n in _imports(ROOT / 'chip_smoke.py')}
+    assert smoke & repo_modules == {'torch_reference_names'}
+    inverse = {n.split('.')[0]
+               for n in _imports(ROOT / 'tests' / 'torch_reference_names.py')}
+    assert inverse <= {'re', 'numpy'}, inverse
 
 
 def test_pil_is_imported_only_inside_functions():
@@ -84,7 +106,10 @@ def test_import_needs_neither_jax_nor_yaml():
             'streamingflow_tpu_torch.utils.visualisation, '
             'streamingflow_tpu_torch.parallel, '
             'streamingflow_tpu_torch.parallel.launch, '
-            'streamingflow_tpu_torch.tools.dryrun_multichip; '
+            'streamingflow_tpu_torch.tools.dryrun_multichip, '
+            'streamingflow_tpu_torch.tools.convert_checkpoint, '
+            'streamingflow_tpu_torch.utils.torch_convert, '
+            'streamingflow_tpu_torch.models.distributions; '
             'print(sorted(m for m in ("jax", "flax", "orbax", "cv2", "PIL", '
             '"yaml", "streamingflow_tpu") if m in sys.modules))')
     out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
