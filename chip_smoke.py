@@ -7,7 +7,8 @@ training steps on one GPU.
                           [--out runs/chip_smoke.json]
 
 Run from the repository root on a machine with an NVIDIA Hopper card and
-the CUDA toolkit.  Phases, each printing one JSON line:
+the CUDA toolkit.  ``--out`` receives the kernels line and every phase's
+line (``phases``).  Phases, each printing one JSON line:
 
   1. device      the card, and nvidia-smi's name and power limit
   2. build       nvcc of every csrc/*.cu (and the pool's loads-only
@@ -143,9 +144,27 @@ the CUDA toolkit.  Phases, each printing one JSON line:
                  phase cli's tree (K2 and K3 counted); distribution_forward
                  of the three methods at the flagship present state, card
                  against CPU (1e-5)
+ 14f. planning   (after train) the flagship with PLANNING.ENABLED (600
+                 candidates of the CAN-bus sampler, GRU state 64): --requests
+                 bf16 forecasts, each followed by the planner as evaluate
+                 runs it (median latency with and without it, K1 and K2 once
+                 a request); the planner alone at flagship shapes (B 3, one
+                 item per command) in fp32 train mode, card against CPU:
+                 costs, loss, trajectory (beyond near ties), gradients of
+                 its parameters and the cost volume (PLAN_BARS); its
+                 forward, costs and lane cost times at batch 1;
+                 --train-steps flagship steps with the planning loss
+                 (finite, nonzero gradients of the planner and the
+                 costvolume head, step time and peak memory beside phase
+                 train's, K1, K2 and K2's backward once a step)
+ 15c. planning_cli  evaluate.main on phase cli's tree (with a CAN bus) with
+                 PLANNING.ENABLED: finite planning@1s and @2s obj_col,
+                 obj_box_col and L2, candidates not all zero, K1 and K2 once
+                 a forecast
  20. kernels     every kernel of the port with its launches, error and times
                  (cli_launches: of phase cli; import_launches: of phase
-                 reference_import's evaluation); then a check that every
+                 reference_import's evaluation; planning_launches: of phases
+                 planning and planning_cli); then a check that every
                  process a phase started (nvcc, the loaders' workers, their
                  fork server and resource tracker) has ended
 
@@ -175,7 +194,13 @@ FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
 
 
+# every line the phases print, kept for the --out file (a long run's output
+# may be read only from its end)
+EMITTED = []
+
+
 def emit(obj):
+    EMITTED.append(obj)
     print(json.dumps(obj), flush=True)
 
 
@@ -1620,9 +1645,10 @@ def phase_train_tiny(dev):
           'tolerance': tol})
 
 
-def phase_train(cfg, dev, n_steps, card, n_points=80000):
+def phase_train(cfg, dev, n_steps, card, n_points=80000, summary=None):
     """Flagship training steps (fp32 parameters, batch 1), every kernel
-    count set to 0 before the steps and read after them."""
+    count set to 0 before the steps and read after them.  ``summary``: a
+    dict that receives the median step time and the peak memory."""
     import torch
     import streamingflow_tpu_torch as P
     from streamingflow_tpu_torch.data import make_batch
@@ -1692,6 +1718,10 @@ def phase_train(cfg, dev, n_steps, card, n_points=80000):
             moved['bn_buffers'] != n_buffers:
         raise AssertionError(f'train: moved {moved} of {len(names)} '
                              f'parameters and {n_buffers} BN buffers')
+    if summary is not None:
+        summary.update(median_step_s=statistics.median(times),
+                       peak_mem_gib=torch.cuda.max_memory_allocated()
+                       / 2 ** 30)
     emit({'phase': 'train', 'steps': n_steps, 'remat': cfg.MODEL.REMAT,
           'step_s': times, 'median_step_s': statistics.median(times),
           'losses': losses, 'launches': counts(),
@@ -1896,6 +1926,453 @@ def phase_train_spconv(dev, n_steps, card, n_points=80000):
           'peak_mem_gib': torch.cuda.max_memory_allocated() / 2 ** 30,
           'card': card})
     return launches
+
+
+# ------------------------------------------------------------------ planning
+# Bars of the planner on the card against the same module on the CPU, fp32,
+# each of its scale (phase planning, leg 'module'): the candidates' costs
+# (gathers and sums in another order) and the loss 1e-5; the planned
+# trajectory 1e-4 (the GRU on the cuDNN-reduced camera feature); the
+# gradients 1e-3 of each leaf's scale (floor: the median leaf's), through
+# the bottlenecks' batch statistics.  The selected candidate and what follows
+# from it are compared only where the best candidate's total cost leads the
+# next distinct one by more than the costs' bar, and the cost volume's
+# gradient only where the largest margin leads the next by more than it.
+PLAN_BARS = {'costs': 1e-5, 'loss': 1e-5, 'traj': 1e-4, 'grads': 1e-3}
+
+
+def planning_config():
+    """data.flagship_config() with the planner on (the JAX package's
+    default PLANNING: 600 candidates, GRU state 64; 200 x 200 BEV, 4
+    futures, a 28 x 60 front-camera feature of 64 channels)."""
+    from streamingflow_tpu_torch.data import flagship_config
+    cfg = flagship_config()
+    cfg.PLANNING.ENABLED = True
+    return cfg
+
+
+def planning_candidates(cfg, rng):
+    """(N, T + 1, 3) candidates of the CAN-bus sampler (data/sampler.py) at
+    a speed and steering drawn from ``rng``, as the nuScenes loader draws
+    them, and a ground truth near one of them."""
+    import numpy as np
+    from streamingflow_tpu_torch.data import sampler
+    f = cfg.N_FUTURE_FRAMES
+    cand = sampler.sample(float(rng.uniform(2.0, 12.0)),
+                          float(rng.uniform(-0.1, 0.1)),
+                          cfg.PLANNING.SAMPLE_NUM, f * 0.5, f,
+                          rng=rng).astype(np.float32)
+    gt = cand[rng.randint(len(cand))] + 0.3 * rng.randn(f + 1, 3)
+    gt[0] = 0.0
+    return cand, gt.astype(np.float32)
+
+
+def planning_batch(cfg, seed, n_points=80000):
+    """make_batch with the sampler's candidates, a ground truth near one,
+    a command per seed and no goal point (as the nuScenes loader gives)."""
+    import numpy as np
+    from streamingflow_tpu_torch.data import make_batch
+    batch = make_batch(cfg, 1, seed=seed, n_points=n_points)
+    cand, gt = planning_candidates(cfg, np.random.RandomState(1000 + seed))
+    batch['sample_trajectory'] = cand[None]
+    batch['gt_trajectory'] = gt[None]
+    batch['command'] = np.array([seed % 3])
+    batch['target_point'] = np.zeros((1, 2), np.float32)
+    return batch
+
+
+def planning_module_inputs(cfg, batch_size=3, seed=0):
+    """The planner's inputs at flagship shapes from ``seed``: the
+    front-camera feature (B, 28, 60, 64), the sampler's candidates without
+    the origin (B, 600, 4, 3), ground truths, a cost volume, sparse
+    occupancy, a map of lane lines and a drivable band (B, 2, 200, 200),
+    one item per command code and a goal point on the second item."""
+    import numpy as np
+    from streamingflow_tpu_torch.models.planning import feature_size
+    rng = np.random.RandomState(seed)
+    b, t, h = batch_size, cfg.N_FUTURE_FRAMES, 200
+    fh, fw = feature_size(cfg)
+    cands, gts = zip(*[planning_candidates(cfg, rng) for _ in range(b)])
+    hd = np.zeros((b, 2, h, h), np.float32)
+    for i in range(b):
+        for c in rng.randint(80, 120, 3):
+            hd[i, 0, :, c] = 1.0                      # lane lines
+        hd[i, 1, :, 70:130] = 1.0                     # the drivable band
+    tp = np.zeros((b, 2), np.float32)
+    tp[1] = [3.0, 12.0]
+    return dict(
+        cam_front=rng.rand(b, fh, fw, cfg.MODEL.ENCODER.OUT_CHANNELS)
+        .astype(np.float32),
+        trajs=np.stack(cands)[:, :, 1:], gt_trajs=np.stack(gts)[:, 1:],
+        cost_volume=(rng.rand(b, t, h, h) * 1.2 - 0.1).astype(np.float32),
+        semantic_pred=(rng.rand(b, t, h, h) > 0.97).astype(np.float32),
+        hd_map=hd, commands=np.arange(b) % 3, target_points=tp)
+
+
+def _lead(values):
+    """Per row, how far the least value leads the next distinct one (inf
+    where all are equal)."""
+    import torch
+    out = []
+    for row in values:
+        u = torch.unique(row.double())
+        out.append(float(u[1] - u[0]) if len(u) > 1 else math.inf)
+    return out
+
+
+def phase_planning_module(dev):
+    """The planner alone at flagship shapes in fp32 and train mode, card
+    against CPU, the same weights (seed 0) and inputs: the candidates'
+    costs, the loss, the planned trajectory, the gradients of the planning
+    parameters and of the cost volume (PLAN_BARS); then, on the card in
+    eval mode at batch 1 (CUDA events), its forward, the candidates' costs
+    and the lane cost alone."""
+    import copy
+    import torch
+    from streamingflow_tpu_torch.models.planning import (Planning,
+                                                         select_command_trajs)
+    from streamingflow_tpu_torch.ops.cost import lr_divider_cost
+    cfg = planning_config()
+    torch.manual_seed(0)
+    cpu = Planning(cfg, cfg.MODEL.ENCODER.OUT_CHANNELS,
+                   cfg.PLANNING.GRU_STATE_SIZE)
+    gpu = copy.deepcopy(cpu).to(dev)
+    inputs = planning_module_inputs(cfg)
+
+    def run(module, device):
+        x = {k: torch.from_numpy(v).to(device) for k, v in inputs.items()}
+        x['cost_volume'].requires_grad_(True)
+        module.train().zero_grad()
+        cur = select_command_trajs(x['trajs'], x['commands'], module.num)
+        maps = (x['cost_volume'], x['semantic_pred'], x['hd_map'][:, :1],
+                x['hd_map'][:, 1:], x['target_points'])
+        with torch.no_grad():
+            fc, fo = module.costs(cur, *maps)
+            gfc, gfo = module.costs(x['gt_trajs'][:, None], *maps)
+            l2 = ((cur[..., :2] - x['gt_trajs'][:, None, :, :2]) ** 2
+                  ).sum(-1).mean(-1)
+            margin = torch.relu(torch.relu(gfo - fo).sum(-1) + gfc - fc + l2)
+        loss, traj = module(**x)
+        loss.backward()
+        return dict(fc=fc.cpu(), fo=fo.cpu(), margin=margin.cpu(),
+                    loss=loss.detach().cpu(), traj=traj.detach().cpu(),
+                    cv=x['cost_volume'].grad.cpu(),
+                    grads={n: p.grad.cpu() for n, p in
+                           module.named_parameters()})
+
+    want, got = run(cpu, 'cpu'), run(gpu, dev)
+    total = want['fc'] + want['fo'].sum(-1)
+    scale = float(total.abs().max())
+    bar = PLAN_BARS['costs'] * scale
+    lead = _lead(total)
+    kept = [i for i, v in enumerate(lead) if v > bar]
+    m_lead = _lead(-want['margin'])
+    m_kept = [i for i, v in enumerate(m_lead) if v > bar]
+    errs = {}
+
+    def rel(name, g, w, tol, rows=None):
+        if rows is not None:
+            g, w = g[rows], w[rows]
+        err = float((g - w).abs().max()) if g.numel() else 0.0
+        errs[name] = err / max(float(w.abs().max()), 1e-30)
+        if not torch.isfinite(g).all() or err > tol * max(
+                float(w.abs().max()), 1e-30):
+            raise AssertionError(
+                f'planning module: {name} card vs CPU {err:.3g} of scale '
+                f'{float(w.abs().max()):.3g} exceeds {tol:g}')
+
+    rel('cost_fc', got['fc'], want['fc'], PLAN_BARS['costs'])
+    rel('cost_fo', got['fo'], want['fo'], PLAN_BARS['costs'])
+    rel('loss', got['loss'], want['loss'], PLAN_BARS['loss'])
+    rel('output_traj', got['traj'], want['traj'], PLAN_BARS['traj'], kept)
+    rel('cost_volume_grad', got['cv'], want['cv'], PLAN_BARS['grads'],
+        m_kept)
+    floor = statistics.median(float(g.abs().max())
+                              for g in want['grads'].values())
+    worst = 0.0
+    for n, w in want['grads'].items():
+        err = float((got['grads'][n] - w).abs().max())
+        s = max(float(w.abs().max()), floor)
+        worst = max(worst, err / s)
+        if err > PLAN_BARS['grads'] * s:
+            raise AssertionError(f'planning module: grad {n} card vs CPU '
+                                 f'{err:.3g} of scale {s:.3g}')
+    errs['param_grads'] = worst
+    if not float(want['cv'].abs().max()) > 0:
+        raise AssertionError('planning module: no gradient reached the '
+                             'cost volume')
+    # where the planner's time goes at a request's batch of 1 (eval mode):
+    # all of it, the candidates' costs, and the lane cost alone
+    gpu.eval()
+    x = {k: torch.from_numpy(v[:1]).to(dev) for k, v in inputs.items()}
+    lane = x['hd_map'][:, :1]
+    with torch.no_grad():
+        cur = select_command_trajs(x['trajs'], x['commands'], gpu.num)
+        maps = (x['cost_volume'], x['semantic_pred'], lane,
+                x['hd_map'][:, 1:], x['target_points'])
+        flipped = cur[..., :2] * torch.tensor([-1.0, 1.0], device=dev)
+        times = {
+            'forward_ms': cuda_ms(lambda: gpu(**x), reps=5, warmup=2),
+            'costs_ms': cuda_ms(lambda: gpu.costs(cur, *maps), reps=5,
+                                warmup=2),
+            'lr_divider_ms': cuda_ms(lambda: lr_divider_cost(
+                gpu.grid, flipped, lane, cfg.COST_FUNCTION.LRDIVIDER),
+                reps=5, warmup=2)}
+    return {'errors_of_scale': errs, 'bars': PLAN_BARS,
+            'selection_lead': lead, 'near_tie_items_excluded':
+            len(lead) - len(kept), 'margin_lead': m_lead,
+            'margin_near_tie_items_excluded': len(m_lead) - len(m_kept),
+            'batch1': times}
+
+
+def phase_planning_serve(cfg, dev, n_requests):
+    """bf16 forecasts of the flagship with the planner, as evaluate runs it
+    (evaluate.run_planner on the forecast's predicted occupancy, cost
+    volume and front-camera feature, a zero map without the map head): the
+    median latency with and without the planner, K1 and K2 once a
+    request."""
+    import torch
+    import streamingflow_tpu_torch as P
+    from streamingflow_tpu_torch.evaluate import run_planner
+    from streamingflow_tpu_torch.ops import bin_sum as B
+    from streamingflow_tpu_torch.ops import patch_pool as PP
+    model = P.build_model(cfg, device=dev, dtype=torch.bfloat16, seed=0)
+    f = cfg.N_FUTURE_FRAMES
+
+    def counts():
+        return {'bin_sum': B.launches, 'patch_pool': PP.launches}
+
+    def request(seed):
+        batch = planning_batch(cfg, seed)
+        args = P.batch_to_model_args(batch, cfg, device=dev,
+                                     image_dtype=torch.bfloat16)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = model(**args, generator=gen)
+        seg_pred = out['segmentation'].argmax(-1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        traj = run_planner(model.planning, cfg, batch, out, seg_pred)
+        torch.cuda.synchronize()
+        return traj, t1 - t0, time.perf_counter() - t0
+
+    request(100)                                  # warm-up, not counted
+    B.launches = PP.launches = 0
+    fwd, total, per = [], [], []
+    for seed in range(1, n_requests + 1):
+        before = counts()
+        traj, a, b = request(seed)
+        per.append({k: v - before[k] for k, v in counts().items()})
+        fwd.append(a)
+        total.append(b)
+        if tuple(traj.shape) != (1, f, 3) or not torch.isfinite(traj).all():
+            raise AssertionError(f'planning serve: trajectory {traj}')
+    for i, got in enumerate(per):
+        if got != {'bin_sum': 1, 'patch_pool': 1}:
+            raise AssertionError(f'planning serve: request {i}: launches '
+                                 f'{got}, want one K1 and one K2')
+    del model
+    torch.cuda.empty_cache()
+    return {'requests': n_requests, 'forecast_s': fwd,
+            'forecast_and_planner_s': total,
+            'median_forecast_s': statistics.median(fwd),
+            'median_forecast_and_planner_s': statistics.median(total),
+            'median_planner_s': statistics.median(
+                b - a for a, b in zip(fwd, total)),
+            'per_request_launches': per}, counts()
+
+
+def phase_planning_train(cfg, dev, n_steps):
+    """Flagship training steps with the planner (fp32 parameters, batch 1,
+    MODEL.REMAT as configured, TF32 off) after one warm-up: finite losses
+    with 'planning' among them, nonzero gradients of the planner's
+    parameters, and of the decoder's costvolume head in every step
+    (warm-up included) where the loss's gradient reached the cost volume,
+    at least one; step time and peak memory, K1, K2 (fp32 rows) and K2's
+    backward once a step."""
+    import torch
+    import streamingflow_tpu_torch as P
+    from streamingflow_tpu_torch.ops import bin_sum as B
+    from streamingflow_tpu_torch.ops import patch_pool as PP
+    trainer = P.build_trainer(cfg, device=dev, seed=0)
+    planning = trainer.module.model.planning
+    plan_forward = planning.forward
+    seen = []
+
+    def read_cost_volume(*a, **kw):
+        # the future cost volume the planner samples: the share of it inside
+        # the volume cost's unclipped range (0, 1), and its gradient
+        cv = kw['cost_volume']
+        seen.append({'in_range': float(((cv > 0) & (cv < 1)).float()
+                                       .mean())})
+        cv.register_hook(lambda g: seen[-1].update(
+            grad_cells=int((g != 0).sum())))
+        return plan_forward(*a, **kw)
+
+    planning.forward = read_cost_volume
+    head = [p for n, p in trainer.module.named_parameters()
+            if 'costvolume_head' in n]
+
+    def counts():
+        return {'bin_sum': B.launches, 'patch_pool': PP.launches,
+                'patch_pool_fp32_rows': PP.launches_fp32,
+                'patch_pool_bwd': PP.launches_bwd}
+
+    def step(seed):
+        batch = planning_batch(cfg, seed)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = P.train_step(trainer, batch, generator=gen)
+        torch.cuda.synchronize()
+        seen[-1]['head_grad_abs_max'] = max(float(p.grad.abs().max())
+                                            for p in head)
+        return metrics, time.perf_counter() - t0
+
+    step(100)                                     # warm-up, not counted
+    torch.cuda.reset_peak_memory_stats()
+    B.launches = PP.launches = PP.launches_fp32 = PP.launches_bwd = 0
+    times, losses, per = [], [], []
+    for seed in range(1, n_steps + 1):
+        before = counts()
+        metrics, dt = step(seed)
+        per.append({k: v - before[k] for k, v in counts().items()})
+        times.append(dt)
+        if 'planning' not in metrics:
+            raise AssertionError('planning train: no planning loss')
+        for k, v in metrics.items():
+            if not torch.isfinite(v).all():
+                raise AssertionError(f'planning train step {seed}: {k} not '
+                                     f'finite')
+        losses.append({k: float(v) for k, v in metrics.items()
+                       if k in ('total_loss', 'planning',
+                                'planning_uncertainty', 'grad_norm')})
+    want = {'bin_sum': 1, 'patch_pool': 1, 'patch_pool_fp32_rows': 1,
+            'patch_pool_bwd': 1}
+    for i, got in enumerate(per):
+        if got != want:
+            raise AssertionError(f'planning train step {i}: launches {got}, '
+                                 f'want {want}')
+    planning.forward = plan_forward
+    # the last step's gradients (clipped in place, not zeroed until the
+    # next step)
+    zero = [n for n, p in trainer.module.named_parameters()
+            if '.planning.' in n and not float(p.grad.abs().max()) > 0]
+    n_planning = sum(1 for n, _ in trainer.module.named_parameters()
+                     if '.planning.' in n)
+    if zero or not n_planning:
+        raise AssertionError(f'planning train: zero gradients {zero}')
+    # the cost volume takes a gradient only at the cells the loss samples
+    # inside the volume cost's unclipped range (0, 1): where it did, the
+    # costvolume head must have one too, and some step must have had one
+    if any(s.get('grad_cells', 0) > 0 and not s['head_grad_abs_max'] > 0
+           for s in seen) or not any(s.get('grad_cells', 0) > 0
+                                     for s in seen):
+        raise AssertionError(f'planning train: the planning loss does not '
+                             f'reach the costvolume head: {seen}')
+    line = {'steps': n_steps, 'step_s': times,
+            'median_step_s': statistics.median(times), 'losses': losses,
+            'per_step_launches': per, 'planning_parameters': n_planning,
+            'cost_volume': seen,
+            'peak_mem_gib': torch.cuda.max_memory_allocated() / 2 ** 30}
+    del trainer
+    torch.cuda.empty_cache()
+    return line, counts()
+
+
+def phase_planning(dev, n_requests, n_steps, card, train_line):
+    """The planner on the flagship (PLANNING.ENABLED): serving, the module
+    card against CPU, training; one JSON line.  ``train_line``: phase
+    train's step time and peak memory, printed beside this phase's.
+    Returns the kernels' launches of its serving and training runs."""
+    cfg = planning_config()
+    serve, serve_counts = phase_planning_serve(cfg, dev, n_requests)
+    module = phase_planning_module(dev)
+    train, train_counts = phase_planning_train(cfg, dev, n_steps)
+    emit({'phase': 'planning', 'serve': serve, 'module': module,
+          'train': train, 'train_without_planner': train_line,
+          'card': card})
+    return {k: serve_counts.get(k, 0) + train_counts.get(k, 0)
+            for k in ('bin_sum', 'patch_pool', 'patch_pool_bwd')}
+
+
+def phase_planning_cli(dev, card, tree, tmp):
+    """``evaluate.main`` on phase cli's tree (which has a CAN bus) with the
+    shipped config and PLANNING.ENABLED, no checkpoint (random weights of
+    seed 0): it prints finite planning@1s and planning@2s values of
+    obj_col, obj_box_col and L2, its candidates are not all zero, and K1
+    and K2 run once a forecast."""
+    import io
+    import torch
+    from streamingflow_tpu_torch import evaluate as E
+    from streamingflow_tpu_torch.data.dataloader import stop_worker_server
+    from streamingflow_tpu_torch.ops import bin_sum as B
+    from streamingflow_tpu_torch.ops import patch_pool as PP
+    cfg_file = os.path.join(ROOT, 'configs', 'prediction_lc_ode_variable.yml')
+    opts = ['DATASET.DATAROOT', tree, 'DATASET.VERSION', 'mini',
+            'MODEL.BEV_POOL_BACKEND', 'pallas_patch',
+            'LOG_DIR', os.path.join(tmp, 'planning_log'),
+            'PLANNING.ENABLED', 'True']
+    seen = {'candidates_abs_max': [], 'forecasts': []}
+    planner, fwd = E.run_planner, E.eval_forward
+
+    def counts():
+        return {'bin_sum': B.launches, 'patch_pool': PP.launches}
+
+    def read_planner(planning, cfg, batch, *a, **kw):
+        seen['candidates_abs_max'].append(
+            float(batch['sample_trajectory'].abs().max()))
+        return planner(planning, cfg, batch, *a, **kw)
+
+    def read_forward(*a, **kw):
+        before = counts()
+        out = fwd(*a, **kw)
+        seen['forecasts'].append({k: v - before[k]
+                                  for k, v in counts().items()})
+        return out
+
+    E.run_planner, E.eval_forward = read_planner, read_forward
+    B.launches = PP.launches = 0
+    text = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(text):
+            results = E.main(['--config-file', cfg_file, '--device',
+                              str(dev), *opts])
+    finally:
+        E.run_planner, E.eval_forward = planner, fwd
+        stop_worker_server()
+    print(text.getvalue(), end='', flush=True)
+    printed = text.getvalue()
+    for sec in (1, 2):
+        for key in ('obj_col', 'obj_box_col', 'L2'):
+            if f'planning@{sec}s {key}:' not in printed:
+                raise AssertionError(f'planning cli: evaluate printed no '
+                                     f'planning@{sec}s {key}')
+    values = {f'{j + 1}s': {k: v.tolist() for k, v in m.items()}
+              for j, m in enumerate(results['planning'])}
+    if len(values) != 2 or not all(
+            math.isfinite(x) for m in values.values() for v in m.values()
+            for x in v):
+        raise AssertionError(f'planning cli: planning metrics {values}')
+    if not seen['candidates_abs_max'] or \
+            min(seen['candidates_abs_max']) <= 0:
+        raise AssertionError(f'planning cli: candidates '
+                             f'{seen["candidates_abs_max"]}')
+    for i, got in enumerate(seen['forecasts']):
+        if got != {'bin_sum': 1, 'patch_pool': 1}:
+            raise AssertionError(f'planning cli: forecast {i}: launches '
+                                 f'{got}')
+    emit({'phase': 'planning_cli', 'planning': values,
+          'candidates_abs_max': seen['candidates_abs_max'],
+          'forecast_s': results['forward_s'],
+          'planner_s': results['planner_s'],
+          'per_forecast_launches': seen['forecasts'],
+          'states': {k: v for k, v in results['states'].items()
+                     if k.startswith('planning')}, 'card': card})
+    torch.cuda.empty_cache()
+    return counts()
 
 
 def _loader_times(cfg, n_workers, dev):
@@ -3169,7 +3646,11 @@ def main(argv=None):
     phase_bin_sum_grouped(cfg, dev, results)
     phase_patch_pool_bwd(cfg, dev, results)
     phase_train_tiny(dev)
-    train_launches = phase_train(cfg, dev, args.train_steps, smi)
+    train_summary = {}
+    train_launches = phase_train(cfg, dev, args.train_steps, smi,
+                                 summary=train_summary)
+    planning_launches = phase_planning(dev, args.requests, args.train_steps,
+                                       smi, train_summary)
     phase_train_tiny_spconv(dev)
     spconv_launches = phase_train_spconv(dev, args.train_steps, smi)
     phase_bf16_flagship(dev, smi)
@@ -3178,6 +3659,8 @@ def main(argv=None):
     try:
         cli_launches, tree = phase_cli(dev, smi, tmp)
         import_launches = phase_reference_import(dev, smi, tree, tmp)
+        for k, v in phase_planning_cli(dev, smi, tree, tmp).items():
+            planning_launches[k] += v
         phase_dp_nccl1(smi)
         phase_dp_two_ranks('dp_gloo2', smi)
         phase_dp_two_ranks('dp_spconv', smi)
@@ -3190,14 +3673,17 @@ def main(argv=None):
     # steps' winfuse_dgrad and winfuse_wgrad; train_launches for the forward
     # kernels), of the experiment tool (bin_sum_grouped); import_launches:
     # of evaluate on the imported reference checkpoint (phase
-    # reference_import)
+    # reference_import); planning_launches: of phase planning's forecasts
+    # and steps and phase planning_cli's forecasts
     kernels = [
         dict(name='bin_sum', route='cuda',
              source='streamingflow_tpu_torch/csrc/bin_sum.cu',
              replaces='streamingflow_tpu/ops/pallas_bin.py:63',
              launches=launches['bin_sum'],
              train_launches=train_launches['bin_sum'],
-             cli_launches=cli_launches['bin_sum'], **results['bin_sum']),
+             cli_launches=cli_launches['bin_sum'],
+             planning_launches=planning_launches['bin_sum'],
+             **results['bin_sum']),
         dict(name='patch_pool', route='cuda',
              source='streamingflow_tpu_torch/csrc/patch_pool.cu',
              replaces='streamingflow_tpu/ops/pallas_patch_pool.py:49',
@@ -3205,6 +3691,7 @@ def main(argv=None):
              train_launches=train_launches['patch_pool'],
              cli_launches=cli_launches['patch_pool'],
              import_launches=import_launches['patch_pool'],
+             planning_launches=planning_launches['patch_pool'],
              **results['patch_pool']),
         dict(name='winfuse', route='cuda',
              source='streamingflow_tpu_torch/csrc/winfuse.cu',
@@ -3232,12 +3719,16 @@ def main(argv=None):
              replaces='streamingflow_tpu/ops/pallas_patch_pool.py:257',
              launches=train_launches['patch_pool_bwd'],
              cli_launches=cli_launches['patch_pool_bwd'],
+             planning_launches=planning_launches['patch_pool_bwd'],
              **results['patch_pool_bwd']),
     ]
     for k in kernels:
         if k['launches'] < 1:
             raise AssertionError(f"{k['name']} was not launched on the main "
                                  f"path")
+        if k.get('planning_launches', 1) < 1:
+            raise AssertionError(f"{k['name']} was not launched on the "
+                                 f"planning path")
     # every process a phase started (nvcc, loader workers, the workers'
     # fork server and resource tracker) has ended
     left = _descendants()
@@ -3246,7 +3737,7 @@ def main(argv=None):
     line = {'kernels': kernels}
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, 'w') as f:
-        json.dump({'card': smi, **line}, f, indent=1)
+        json.dump({'card': smi, 'phases': EMITTED, **line}, f, indent=1)
     emit(line)
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': name,
                                  'count': torch.cuda.device_count()}})

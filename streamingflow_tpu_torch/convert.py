@@ -30,6 +30,13 @@ BatchNorm eps is a constructor argument of each torch module and matches the
 flax module's (1e-3 in EfficientNet and the pillar ladder, 1e-5 elsewhere);
 flax BN momentum m is torch momentum 1 - m.
 
+The planner (models/planning.py, PLANNING.ENABLED) maps by the same rules:
+``reduce_channel/Bottleneck_i`` (convs and BN statistics), ``h0_proj``,
+``dec1``, ``dec2`` and flax's GRU cell ``gru/{ir,iz,in,hr,hz,hn}``, each a
+Linear of the port (no packed ``torch.nn.GRUCell``, whose extra hidden
+biases flax lacks); so do the dormant VGG64 encoder and decoder
+(layers/srvp_vgg.py).
+
 The train module (training/trainer.py::StreamingFlowTrainModule) maps by the
 same rules: ``params/model/...``, ``params/task_weights/{name}_weight`` and
 ``batch_stats/model/...``.  :func:`state_to_flax` is the way back: a

@@ -134,6 +134,10 @@ class DataLoader:
                  pin_memory: bool = False, seed: int = 0,
                  shard: Tuple[int, int] = (0, 1)):
         self.dataset = dataset
+        if hasattr(dataset, 'seed'):
+            # a dataset that draws per item (nuScenes' candidate
+            # trajectories) draws from this seed and the item's index
+            dataset.seed = seed
         self.sampler = EpochBatchSampler(len(dataset), batch_size, shuffle,
                                          drop_last, seed, *shard)
         self.epoch = 0

@@ -90,7 +90,7 @@ class FuturePredictionDatasetLyft(FuturePredictionDataset):
         return (segmentation.astype(np.int64), instance.astype(np.int64),
                 pedestrian.astype(np.int64), instance_map)
 
-    def get_trajectory_sampling(self, rec) -> np.ndarray:
+    def get_trajectory_sampling(self, rec, rng=None) -> np.ndarray:
         """Lyft has no CAN bus (reference LyftData omits planning inputs)."""
         return np.zeros((self.cfg.PLANNING.SAMPLE_NUM,
                          self.cfg.N_FUTURE_FRAMES + 1, 3), np.float32)

@@ -6,10 +6,15 @@ A parametrised copy of the test fixture ``tests/fixtures_nuscenes.py::
 make_mini_nuscenes``: at its defaults :func:`make_mini_nuscenes` writes the
 fixture's files byte for byte (JPEG frames through PIL); the parameters
 scale it to a realistic size (cameras, image size, points a sweep, sweeps
-between keyframes, boxes a scene), and ``image_format='ppm'`` writes binary
-PPM frames where PIL is not installed.
+between keyframes, boxes a scene), ``image_format='ppm'`` writes binary
+PPM frames where PIL is not installed, and ``can_bus=True`` adds each
+scene's CAN bus (``can_bus/<scene>_pose.json`` at 50 Hz and
+``<scene>_steeranglefeedback.json`` at 100 Hz, the ego's speed and a
+steering angle), from which the dataset samples the planner's candidate
+trajectories.
 
     python -m streamingflow_tpu_torch.data.mini_nuscenes ROOT [--flagship]
+        [--can-bus]
 """
 from __future__ import annotations
 
@@ -86,13 +91,15 @@ def make_mini_nuscenes(root: str, version: str = 'v1.0-mini',
                        cameras=('CAM_FRONT', 'CAM_BACK'),
                        image_size=(W_IMG, H_IMG), n_points: int = 512,
                        n_instances: int = 1,
-                       image_format: str = 'jpg') -> None:
+                       image_format: str = 'jpg',
+                       can_bus: bool = False) -> None:
     """Write the tree under ``root``.  ``image_size`` is (W, H) of every
     frame (focal length 100 px at the fixture's 160 px width, scaled with
     it); ``n_points`` the returns of a LiDAR sweep; ``n_instances`` the
     moving boxes of a scene (the first as in the fixture, the others placed
     around the ego from their own seed); ``image_format`` 'jpg' (PIL) or
-    'ppm'."""
+    'ppm'; ``can_bus``: write the scenes' CAN bus (:func:`write_can_bus`,
+    from a seed of its own: the other files stay as they are)."""
     if image_format not in ('jpg', 'ppm'):
         raise ValueError(f'image_format {image_format!r}: jpg or ppm')
     rng = np.random.RandomState(seed)
@@ -262,17 +269,46 @@ def make_mini_nuscenes(root: str, version: str = 'v1.0-mini',
         json.dump({'train': ['scene-0000'], 'val': ['scene-0001'],
                    'mini_train': ['scene-0000'], 'mini_val': ['scene-0001']},
                   f)
+    if can_bus:
+        write_can_bus(root, scenes, samples, seed + 2)
+
+
+def write_can_bus(root: str, scenes, samples, seed: int) -> None:
+    """Each scene's CAN bus messages (the devkit's can_bus layout) from one
+    second before its first keyframe to one second after its last: ``pose``
+    at 50 Hz with the ego's velocity (4 m/s along x, as its poses move,
+    with a little noise) and ``steeranglefeedback`` at 100 Hz (a slow
+    swing of +-0.2 rad with noise)."""
+    rng = np.random.RandomState(seed)
+    os.makedirs(os.path.join(root, 'can_bus'), exist_ok=True)
+    for scene in scenes:
+        ts = [s['timestamp'] for s in samples
+              if s['scene_token'] == scene['token']]
+        lo, hi = min(ts) - 1_000_000, max(ts) + 1_000_000
+        pose = [{'utime': int(u), 'vel': [4.0 + 0.1 * float(rng.randn()),
+                                          0.0, 0.0],
+                 'pos': [0.0, 0.0, 0.0], 'orientation': [1.0, 0.0, 0.0, 0.0]}
+                for u in range(lo, hi, 20_000)]
+        steer = [{'utime': int(u),
+                  'value': 0.2 * float(np.sin((u - lo) / 1.5e6))
+                  + 0.01 * float(rng.randn())}
+                 for u in range(lo, hi, 10_000)]
+        for channel, msgs in (('pose', pose), ('steeranglefeedback', steer)):
+            with open(os.path.join(root, 'can_bus',
+                                   f"{scene['name']}_{channel}.json"),
+                      'w') as f:
+                json.dump(msgs, f)
 
 
 def flagship_tree(root: str, image_format: str = 'jpg') -> None:
     """The tree of the flagship configuration at a realistic size: the 6
     cameras at 1600x900, 34,720-point LiDAR sweeps at 20 Hz (9 sweeps
     between the 2 Hz keyframes), 20 moving boxes a scene, 2 scenes of 9
-    keyframes."""
+    keyframes, and the scenes' CAN bus (the planner's candidates)."""
     make_mini_nuscenes(root, n_scenes=2, n_samples=9, n_sweeps_between=9,
                        cameras=NUSCENES_CAMERAS, image_size=(1600, 900),
                        n_points=34720, n_instances=20,
-                       image_format=image_format)
+                       image_format=image_format, can_bus=True)
 
 
 def main(argv=None):
@@ -281,11 +317,15 @@ def main(argv=None):
     ap.add_argument('--flagship', action='store_true',
                     help='the flagship-size tree (flagship_tree)')
     ap.add_argument('--image-format', default='jpg', choices=('jpg', 'ppm'))
+    ap.add_argument('--can-bus', action='store_true',
+                    help='add the CAN bus to the small tree (the flagship '
+                         'tree has it)')
     args = ap.parse_args(argv)
     if args.flagship:
         flagship_tree(args.root, args.image_format)
     else:
-        make_mini_nuscenes(args.root, image_format=args.image_format)
+        make_mini_nuscenes(args.root, image_format=args.image_format,
+                           can_bus=args.can_bus)
 
 
 if __name__ == '__main__':

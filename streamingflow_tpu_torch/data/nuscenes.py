@@ -6,11 +6,13 @@ CPU for the pose algebra), imports no cv2 (polygons, the depth resize and
 the frames go through data/raster.py) and reads frames with PIL where it is
 installed, binary PPM without it.  Nothing is drawn at random per item but
 ``sample_trajectory``, the candidate trajectories of the planning inputs,
-and that only where the tree has a CAN bus.  They are drawn from numpy's
-global state, as in the JAX package, which PyTorch reseeds in every loader
-worker: with ``N_WORKERS`` > 0 that key differs from the JAX dataset's
-(planning, ROADMAP item 15, is the first reader of it).  Every other key of
-a worker's item is the one the main thread would give.
+and that only where the tree has a CAN bus.  They are drawn from a
+``np.random.RandomState`` seeded from the dataset's ``seed`` (the loader's,
+data/dataloader.py) and the item's index, so an item gives the same
+candidates in the main thread and in any loader worker.  This departs from
+the JAX dataset, which draws them from numpy's global state (reseeded in
+every worker by PyTorch's loader, where they would depend on the worker
+that loaded the item).  Every other key of an item is the JAX dataset's.
 
 Channels-last re-implementation of reference
 streamingflow/datas/NuscenesData.py (FuturePredictionDataset:47,
@@ -79,8 +81,11 @@ class FuturePredictionDataset:
 
     SAMPLE_INTERVAL = 0.5  # seconds between keyframes
 
-    def __init__(self, nusc: NuScenes, is_train: int, cfg: Config):
+    def __init__(self, nusc: NuScenes, is_train: int, cfg: Config,
+                 seed: int = 0):
         self.nusc = nusc
+        # with the item's index, the seed of its candidate trajectories
+        self.seed = seed
         self.cfg = cfg
         self.is_train = is_train
         self.dataroot = nusc.dataroot
@@ -399,9 +404,10 @@ class FuturePredictionDataset:
             command = 1  # FORWARD
         return gt.astype(np.float32), command
 
-    def get_trajectory_sampling(self, rec) -> np.ndarray:
+    def get_trajectory_sampling(self, rec, rng=None) -> np.ndarray:
         """Sample candidate trajectories from CAN speed/steering
-        (reference NuscenesData.py:503-551)."""
+        (reference NuscenesData.py:503-551), drawn from ``rng`` (numpy's
+        global state when None)."""
         from . import sampler as trajectory_sampler
         scene = self.nusc.get('scene', rec['scene_token'])
         pose_msgs = self.can.get_messages(scene['name'], 'pose')
@@ -423,7 +429,7 @@ class FuturePredictionDataset:
         Kappa = 2 * steering / 2.588
         trajs = trajectory_sampler.sample(
             v0, Kappa, self.cfg.PLANNING.SAMPLE_NUM,
-            n_future * self.SAMPLE_INTERVAL, n_future)
+            n_future * self.SAMPLE_INTERVAL, n_future, rng=rng)
         return trajs.astype(np.float32)
 
     # ----------------------------------------------------------------- lidar
@@ -654,7 +660,8 @@ class FuturePredictionDataset:
             if i == rf - 1:
                 gt_traj, command = self.get_gt_trajectory(rec, index_t)
                 gt_trajectory = gt_traj
-                sample_trajectory = self.get_trajectory_sampling(rec)
+                sample_trajectory = self.get_trajectory_sampling(
+                    rec, rng=np.random.RandomState([self.seed, index]))
 
         padded_points, lidar_times = self.get_points_from_multisweeps(index)
 

@@ -130,16 +130,24 @@ class Bottleneck(nn.Module):
     residual: the identity, or (bilinear x2 / 2x2 max pool) -> 1x1 conv ->
     BN when the width or the size changes.  The upsampling conv is the flax
     ConvTranspose of stride 2 padded (k - 1 - k // 2, k - 1): 2H x 2W out
-    of H x W."""
+    of H x W.  The downsampling residual's 2 x 2 pool gives floor(H / 2)
+    rows where the strided conv gives ceil(H / 2): at an odd side they meet
+    only where the pool's one row or column broadcasts (a side of 3), as in
+    the JAX module, which fails at any other odd side.  ``pool_ceil``: there
+    the pool covers the last row or column (ceil mode) and meets the conv;
+    wherever the JAX module runs it changes nothing (the planner's use,
+    models/planning.py)."""
 
     def __init__(self, cin: int, cout: Optional[int] = None,
                  kernel_size: int = 3, upsample: bool = False,
-                 downsample: bool = False, dropout: float = 0.0):
+                 downsample: bool = False, dropout: float = 0.0,
+                 pool_ceil: bool = False):
         super().__init__()
         cout = cout or cin
         mid = cin // 2
         k, pad = kernel_size, kernel_size // 2
         self.upsample, self.downsample = upsample, downsample
+        self.pool_ceil = pool_ceil
         self.Conv_0 = conv2d(cin, mid, 1)
         if upsample:
             self.ConvTranspose_0 = ConvTranspose2d(mid, mid, k, 2, k - 1 - pad,
@@ -171,7 +179,12 @@ class Bottleneck(nn.Module):
         if self.upsample:
             skip = resize_bilinear(skip, (x.shape[2] * 2, x.shape[3] * 2))
         elif self.downsample:
-            skip = F.max_pool2d(skip, 2, 2)
+            pooled = F.max_pool2d(skip, 2, 2)
+            if self.pool_ceil and any(
+                    p not in (1, q) for p, q in zip(pooled.shape[2:],
+                                                    h.shape[2:])):
+                pooled = F.max_pool2d(skip, 2, 2, ceil_mode=True)
+            skip = pooled
         skip = self.BatchNorm_3(getattr(self, self.skip_conv)(skip))
         return h + skip
 

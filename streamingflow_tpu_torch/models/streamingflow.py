@@ -31,6 +31,7 @@ from .encoder import Encoder
 from .future_prediction import FuturePredictionODE
 from .lidar_encoder import LidarBEVEncoder
 from .pillar_encoder import PillarBEVEncoder
+from .planning import Planning
 from .temporal_model import TemporalModel, TemporalModelIdentity
 
 
@@ -38,10 +39,6 @@ class StreamingFlow(nn.Module):
 
     def __init__(self, cfg: Config):
         super().__init__()
-        if cfg.PLANNING.ENABLED:
-            raise NotImplementedError(
-                'PLANNING.ENABLED is not ported yet (ROADMAP.md, Queue 1 '
-                'item 15: planning)')
         self.cfg = cfg
         self._generator: Optional[torch.Generator] = None
         (self.bev_resolution, self.bev_start_position,
@@ -103,6 +100,14 @@ class StreamingFlow(nn.Module):
                 skipco=cfg.MODEL.SMALL_ENCODER.SKIPCO,
                 max_gap_seconds=fp.MAX_GAP_SECONDS,
                 stochastic=cfg.PROBABILISTIC.ENABLED)
+
+        if cfg.PLANNING.ENABLED:
+            # the planner: the forward does not call it; the train module
+            # runs it on the forward's outputs (training/trainer.py), as
+            # evaluate does on the forecast
+            self.planning = Planning(
+                cfg, feature_channel=cfg.MODEL.ENCODER.OUT_CHANNELS,
+                gru_state_size=cfg.PLANNING.GRU_STATE_SIZE)
 
         self.latent_dim = cfg.MODEL.DISTRIBUTION.LATENT_DIM
         if cfg.PROBABILISTIC.ENABLED:

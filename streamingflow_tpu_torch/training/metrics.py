@@ -1,9 +1,11 @@
-"""Evaluation metrics: IoU and panoptic quality (PQ/SQ/RQ).
+"""Evaluation metrics: IoU, panoptic quality (PQ/SQ/RQ) and planning.
 
 Numpy port of streamingflow_tpu/training/metrics.py (reference
-streamingflow/metrics.py: IntersectionOverUnion:15, PanopticMetric:74):
-host-side states and updates, the same numbers.  ``PlanningMetric`` waits
-for the planning branch (ROADMAP item 15).
+streamingflow/metrics.py: IntersectionOverUnion:15, PanopticMetric:74,
+PlanningMetric:263): host-side states and updates, the same numbers.  Each
+metric's ``state()`` is an array of counts and sums that adds across
+processes (``load_state`` takes the sum back), as the sharded validation
+sums them.
 """
 from __future__ import annotations
 
@@ -189,6 +191,100 @@ class PanopticMetric:
             'sq': self.iou / np.maximum(self.true_positive, 1.0),
             'rq': self.true_positive / denominator,
         }
+
+
+class PlanningMetric:
+    """L2 error and object / ego-box collision counts of planned
+    trajectories against BEV occupancy, per future step (reference
+    metrics.py:263-396).  The ego box is rasterised by the cost library's
+    half-plane fill (ops/cost.py::polygon_fill) where the JAX metric takes
+    matplotlib's ``Path.contains_points``: the same cells at the tiny and
+    the flagship grids (tests/test_torch_planning_metric.py)."""
+
+    def __init__(self, cfg, n_future: int = 4):
+        from .. import geometry as G
+        dx, start, dim = G.calculate_birds_eye_view_parameters(
+            cfg.LIFT.X_BOUND, cfg.LIFT.Y_BOUND, cfg.LIFT.Z_BOUND)
+        self.dx = dx[:2]
+        self.bx = start[:2]
+        self.bev_dimension = dim
+        self.W = cfg.EGO.WIDTH
+        self.H = cfg.EGO.HEIGHT
+        self.n_future = n_future
+        self.reset()
+
+    def reset(self):
+        self.obj_col = np.zeros(self.n_future, np.float64)
+        self.obj_box_col = np.zeros(self.n_future, np.float64)
+        self.L2 = np.zeros(self.n_future, np.float64)
+        self.total = 0
+
+    def state(self) -> np.ndarray:
+        return np.concatenate([self.obj_col, self.obj_box_col, self.L2,
+                               [self.total]])
+
+    def load_state(self, state: np.ndarray):
+        state = np.asarray(state, np.float64)
+        n = self.n_future
+        self.obj_col = state[:n].copy()
+        self.obj_box_col = state[n:2 * n].copy()
+        self.L2 = state[2 * n:3 * n].copy()
+        self.total = int(round(float(state[3 * n])))
+
+    def ego_box_cells(self) -> np.ndarray:
+        """(K, 2) integer (row, col) cells of the ego box around the
+        origin."""
+        from ..ops.cost import ego_box_points, polygon_fill
+        return polygon_fill(ego_box_points(self.bx, self.dx, self.W, self.H))
+
+    def _single_coll(self, traj, segmentation):
+        rc = self.ego_box_cells()
+        n_future = traj.shape[0]
+        trajs = traj.reshape(n_future, 1, 2)[:, :, ::-1] / self.dx
+        trajs = trajs + rc
+        r = np.clip(trajs[:, :, 0].astype(np.int32), 0,
+                    self.bev_dimension[0] - 1)
+        c = np.clip(trajs[:, :, 1].astype(np.int32), 0,
+                    self.bev_dimension[1] - 1)
+        collision = np.zeros(n_future, bool)
+        for t in range(n_future):
+            collision[t] = bool(np.any(segmentation[t, r[t], c[t]]))
+        return collision
+
+    def update(self, trajs: np.ndarray, gt_trajs: np.ndarray,
+               segmentation: np.ndarray):
+        """trajs / gt_trajs (B, n_future, 3); segmentation (B, n_future, H,
+        W)."""
+        trajs = np.asarray(trajs)
+        gt_trajs = np.asarray(gt_trajs)
+        segmentation = np.asarray(segmentation)
+        self.L2 += np.sqrt(((trajs[:, :, :2] - gt_trajs[:, :, :2]) ** 2
+                            ).sum(-1)).sum(0)
+        B, n_future = trajs.shape[:2]
+        flip = np.array([-1, 1])
+        t2 = trajs[:, :, :2] * flip
+        g2 = gt_trajs[:, :, :2] * flip
+        for i in range(B):
+            gt_box_coll = self._single_coll(g2[i], segmentation[i])
+            # row index from the y-component, column from x (ref :349-351)
+            xx, yy = t2[i, :, 0], t2[i, :, 1]
+            yi = ((yy - self.bx[0]) / self.dx[0]).astype(np.int64)
+            xi = ((xx - self.bx[1]) / self.dx[1]).astype(np.int64)
+            m1 = ((yi >= 0) & (yi < self.bev_dimension[0])
+                  & (xi >= 0) & (xi < self.bev_dimension[1])
+                  & ~gt_box_coll)
+            ti = np.arange(n_future)
+            self.obj_col[ti[m1]] += segmentation[i, ti[m1], yi[m1], xi[m1]]
+            m2 = ~gt_box_coll
+            box_coll = self._single_coll(t2[i], segmentation[i])
+            self.obj_box_col[ti[m2]] += box_coll[ti[m2]]
+        self.total += B
+
+    def compute(self) -> Dict[str, np.ndarray]:
+        total = max(self.total, 1)
+        return {'obj_col': self.obj_col / total,
+                'obj_box_col': self.obj_box_col / total,
+                'L2': self.L2 / total}
 
 
 def metric_states(**metrics) -> Dict[str, list]:

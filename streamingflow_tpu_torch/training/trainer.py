@@ -7,7 +7,9 @@ under one parameter tree, as the JAX package's does.  A step is: warp the
 labels into the present frame -> forward in train mode -> losses -> backward
 -> clip the global gradient norm -> Adam with the weight decay added to the
 gradient (not decoupled) -> new BatchNorm statistics (updated in place by
-the forward).  A trainer built with a data-parallel group
+the forward).  With PLANNING.ENABLED the planner runs on the forward's
+outputs and its max-margin and Huber loss joins the weighted total
+(:func:`build_planning_inputs`).  A trainer built with a data-parallel group
 (parallel/mesh.py) runs the same step on its rank's rows of the global
 batch, with the batch statistics, the loss denominators and the random
 draws taken over the global batch, and the gradients averaged over the
@@ -100,8 +102,12 @@ class TaskWeights(nn.Module):
 
 class StreamingFlowTrainModule(nn.Module):
     """Model + task weights under one parameter tree (``model.*``,
-    ``task_weights.*``).  The planning branch is not ported: the model
-    raises for PLANNING.ENABLED."""
+    ``task_weights.*``).  With PLANNING.ENABLED and ``planning_inputs``
+    (:func:`build_planning_inputs`) the planner runs on the forward's
+    outputs: the front-camera feature detached (the planner trains on
+    frozen perception, reference trainer.py:207-216), the future cost
+    volume with its gradient.  It adds ``planning_loss`` (train mode; 0 in
+    eval mode) and ``selected_traj`` (B, T + 1, 3), the origin first."""
 
     def __init__(self, cfg: Config):
         super().__init__()
@@ -109,8 +115,23 @@ class StreamingFlowTrainModule(nn.Module):
         self.model = StreamingFlow(cfg)
         self.task_weights = TaskWeights(cfg)
 
-    def forward(self, *args, **kwargs):
-        return self.model(*args, **kwargs), self.task_weights()
+    def forward(self, *args, planning_inputs=None, **kwargs):
+        output = self.model(*args, **kwargs)
+        if self.cfg.PLANNING.ENABLED and planning_inputs is not None:
+            rf = self.cfg.TIME_RECEPTIVE_FIELD
+            pl_loss, final_traj = self.model.planning(
+                cam_front=output['cam_front'].detach(),
+                trajs=planning_inputs['trajs'],
+                gt_trajs=planning_inputs['gt_trajs'],
+                cost_volume=output['costvolume'][:, rf:],
+                semantic_pred=planning_inputs['occupancy'],
+                hd_map=planning_inputs['hdmap'],
+                commands=planning_inputs['commands'],
+                target_points=planning_inputs['target_points'])
+            output['planning_loss'] = pl_loss
+            output['selected_traj'] = torch.cat(
+                [torch.zeros_like(final_traj[:, :1]), final_traj], dim=1)
+        return output, self.task_weights()
 
 
 def prepare_future_labels(batch: Dict[str, torch.Tensor], cfg: Config
@@ -217,7 +238,45 @@ def compute_losses(output: Dict[str, torch.Tensor],
             ignore_index=cfg.DATASET.IGNORE_INDEX, future_discount=fd,
             shard=shard)
         loss['flow_uncertainty'] = 0.5 * weights['flow']
+
+    if cfg.PLANNING.ENABLED and output.get('planning_loss') is not None:
+        loss['planning'] = factor('planning') * output['planning_loss']
+        loss['planning_uncertainty'] = 0.5 * weights['planning']
     return loss
+
+
+def build_planning_inputs(batch, labels: Dict[str, torch.Tensor],
+                          cfg: Config, device=None
+                          ) -> Optional[Dict[str, torch.Tensor]]:
+    """The planner's inputs from a batch (numpy or tensors) and its warped
+    labels, on ``device`` (the labels' when None; reference
+    trainer.py:202-216): occupancy = the future vehicle (or pedestrian)
+    labels; the candidates are the CAN-bus sampler's
+    (``sample_trajectory``) without the origin; the map is the batch's
+    ``hdmap`` raster, or zeros where the batch has none (the reference
+    loader's map rasterisation is off, so the planner must run without
+    one).  None without PLANNING.ENABLED."""
+    if not cfg.PLANNING.ENABLED:
+        return None
+    dev = labels['segmentation'].device if device is None else device
+    rf = cfg.TIME_RECEPTIVE_FIELD
+    occ = labels['segmentation'][:, rf:, :, :, 0].to(dev)
+    if cfg.SEMANTIC_SEG.PEDESTRIAN.ENABLED:
+        occ = torch.logical_or(occ, labels['pedestrian'][:, rf:, :, :, 0]
+                               .to(dev))
+    if 'hdmap' in batch:
+        hdmap = to_tensor(batch['hdmap'], dev, torch.float32)
+    else:
+        h, w = occ.shape[-2:]
+        hdmap = torch.zeros((occ.shape[0], 2, h, w), dtype=torch.float32,
+                            device=dev)
+    return dict(
+        trajs=to_tensor(batch['sample_trajectory'], dev)[:, :, 1:],
+        gt_trajs=to_tensor(batch['gt_trajectory'], dev)[:, 1:],
+        occupancy=occ.to(torch.float32),
+        hdmap=hdmap,
+        commands=to_tensor(batch['command'], dev, torch.int32),
+        target_points=to_tensor(batch['target_point'], dev))
 
 
 def make_optimizer(params, cfg: Config) -> torch.optim.Adam:
@@ -299,9 +358,11 @@ def train_step(trainer: Trainer, batch,
     model_args = batch_to_model_args(
         batch, cfg, device=dev,
         image_dtype=next(module.parameters()).dtype)
+    planning_inputs = build_planning_inputs(batch, labels, cfg, dev)
     module.train()
     trainer.optimizer.zero_grad(set_to_none=True)
-    output, weights = module(**model_args, generator=generator)
+    output, weights = module(**model_args, generator=generator,
+                             planning_inputs=planning_inputs)
     loss_dict = compute_losses(output, labels, weights, cfg, shard)
     total = sum(loss_dict.values())
     total.backward()
@@ -326,7 +387,8 @@ def train_step(trainer: Trainer, batch,
 
 def eval_forward(trainer: Trainer, batch,
                  generator: Optional[torch.Generator] = None,
-                 shard: Optional[BatchShard] = None
+                 shard: Optional[BatchShard] = None,
+                 planning_inputs: Optional[Dict[str, torch.Tensor]] = None
                  ) -> Dict[str, Optional[torch.Tensor]]:
     """Inference forward pass (running BN statistics, no dropout).  The
     GRU-ODE's noise (PROBABILISTIC) comes from ``generator``, by default a
@@ -337,7 +399,9 @@ def eval_forward(trainer: Trainer, batch,
     share of a sharded validation), and the noise is that batch's.  The
     forward's capacity diagnostics, where it has any (spconv8x), are under
     ``output['diagnostics']``, {name: int32 device scalar}, as the JAX
-    package's eval_forward returns them."""
+    package's eval_forward returns them.  With ``planning_inputs``
+    (:func:`build_planning_inputs`) and PLANNING.ENABLED the planner runs
+    too (``selected_traj``)."""
     model_args = batch_to_model_args(batch, trainer.cfg,
                                      device=trainer.device)
     if generator is None:
@@ -345,7 +409,8 @@ def eval_forward(trainer: Trainer, batch,
     set_shard(trainer.module, shard)
     trainer.module.eval()
     with torch.no_grad():
-        output, _ = trainer.module(**model_args, generator=generator)
+        output, _ = trainer.module(**model_args, generator=generator,
+                                   planning_inputs=planning_inputs)
     diag = trainer.module.model.diagnostics()
     if diag:
         output['diagnostics'] = diag

@@ -1,20 +1,30 @@
-"""Visualisation: flow colouring, heatmaps, prediction videos.
+"""Visualisation: flow colouring, heatmaps, instance maps, planned
+trajectories, prediction videos.
 
-A copy of what the port's ``--plot`` and ``VIS_INTERVAL`` use of
-streamingflow_tpu/utils/visualisation.py, kept in the port so that it
-imports nothing of the JAX package (the planning and instance-map plots
-wait for the planning branch, ROADMAP item 15).
+A copy of streamingflow_tpu/utils/visualisation.py, kept in the port so
+that it imports nothing of the JAX package.
 
 Reference: streamingflow/utils/visualisation.py (flow_to_image:13,
 apply_colour_map:43, heatmap_image:68, make_contour:167,
-visualise_output:208-326).  Pure numpy — produces (T, H, W, 3) uint8
-frames for TensorBoard-style video logging.
+generate_instance_colours:384, plot_instance_map:188,
+visualise_output:208-326, plot_planning:334).  Pure numpy — produces
+(T, H, W, 3) uint8 frames for TensorBoard-style video logging.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
+
+# qualitative palette (tab-20-style) for instance ids
+INSTANCE_COLOURS = np.array([
+    [0, 0, 0], [255, 179, 0], [128, 62, 117], [255, 104, 0],
+    [166, 189, 215], [193, 0, 32], [206, 162, 98], [129, 112, 102],
+    [0, 125, 52], [246, 118, 142], [0, 83, 138], [255, 122, 92],
+    [83, 55, 122], [255, 142, 0], [179, 40, 81], [244, 200, 0],
+    [127, 24, 13], [147, 170, 0], [89, 51, 21], [241, 58, 19],
+    [35, 44, 22], [112, 224, 255], [0, 117, 220], [153, 63, 0],
+], np.uint8)
 
 
 def flow_to_image(flow: np.ndarray, autoscale: bool = False) -> np.ndarray:
@@ -104,6 +114,32 @@ def make_contour(img: np.ndarray, colour=(0, 0, 0),
     return out
 
 
+def generate_instance_colours(instance_map: Dict[int, int]
+                              ) -> Dict[int, np.ndarray]:
+    """Stable id -> colour mapping (reference
+    generate_instance_colours:384)."""
+    return {iid: INSTANCE_COLOURS[iid % (len(INSTANCE_COLOURS) - 1) + 1]
+            for iid in instance_map}
+
+
+def plot_instance_map(instance_image: np.ndarray,
+                      instance_map: Optional[Dict[int, int]] = None,
+                      bg_image: Optional[np.ndarray] = None) -> np.ndarray:
+    """Colour an (H, W) instance-id image over an optional background
+    (reference plot_instance_map:188-205)."""
+    inst = np.asarray(instance_image).astype(np.int64)
+    if bg_image is None:
+        img = np.full(inst.shape + (3,), 255, np.uint8)
+    else:
+        img = bg_image.copy()
+    if instance_map is None:
+        instance_map = {int(i): int(i) for i in np.unique(inst) if i > 0}
+    colours = generate_instance_colours(instance_map)
+    for iid, col in colours.items():
+        img[inst == iid] = col
+    return img
+
+
 def visualise_output(labels: Dict[str, np.ndarray],
                      output: Dict[str, np.ndarray],
                      n_present: int = 3) -> np.ndarray:
@@ -140,3 +176,23 @@ def visualise_output(labels: Dict[str, np.ndarray],
         pad_h = np.zeros((4, top.shape[1], 3), np.uint8)
         frames.append(np.concatenate([top, pad_h, bottom], 0))
     return np.stack(frames)
+
+
+def plot_planning(hd_map: np.ndarray, traj: np.ndarray, cfg) -> np.ndarray:
+    """Render the selected trajectory over the HD map (reference
+    plot_planning:334-381).  hd_map: (H, W) or (H, W, C) raster; traj:
+    (T, >=2) ego xy in metres.  Returns (H, W, 3) uint8."""
+    hd = np.asarray(hd_map)
+    if hd.ndim == 3:
+        hd = hd.max(-1)
+    img = np.full(hd.shape + (3,), 255, np.uint8)
+    img[hd > 0] = [200, 200, 200]
+    h, w = hd.shape
+    res = (cfg.LIFT.X_BOUND[2], cfg.LIFT.Y_BOUND[2])
+    start = (cfg.LIFT.X_BOUND[0], cfg.LIFT.Y_BOUND[0])
+    for x, y in np.asarray(traj)[:, :2]:
+        px = int((x - start[0]) / res[0])
+        py = int((y - start[1]) / res[1])
+        if 0 <= px < h and 0 <= py < w:
+            img[max(0, px - 1):px + 2, max(0, py - 1):py + 2] = [214, 39, 40]
+    return img

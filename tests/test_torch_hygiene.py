@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no file of streamingflow_tpu_torch/ nor
-chip_smoke.py imports JAX, flax, orbax, OpenCV or the JAX package, no file
+chip_smoke.py imports JAX, flax, orbax, OpenCV, matplotlib (absent on the
+card's machine) or the JAX package, no file
 of the port the repo's tools/ or tests/, chip_smoke.py of tests/ only the
 numpy-only torch_reference_names.py, and PIL only inside the functions that
 use it where it is installed; importing the port needs neither JAX nor
@@ -15,7 +16,7 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'cv2',
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'cv2', 'matplotlib',
              'streamingflow_tpu')
 
 
@@ -46,7 +47,8 @@ def test_no_port_file_imports_jax_or_the_jax_package():
             'raster.py', 'mini_nuscenes.py', 'mesh.py', 'collect.py',
             'launch.py', 'dryrun_multichip.py', 'torch_convert.py',
             'convert_checkpoint.py', 'rules_prediction_lc_ode_variable.py',
-            'distributions.py', 'device.py'} <= names
+            'distributions.py', 'device.py', 'cost.py', 'planning.py',
+            'srvp_vgg.py', 'tools.py', 'network.py'} <= names
     bad = [(str(p.relative_to(ROOT)), name) for p in files
            for name in _imports(p)
            if name.split('.')[0] in FORBIDDEN]
@@ -109,9 +111,15 @@ def test_import_needs_neither_jax_nor_yaml():
             'streamingflow_tpu_torch.tools.dryrun_multichip, '
             'streamingflow_tpu_torch.tools.convert_checkpoint, '
             'streamingflow_tpu_torch.utils.torch_convert, '
-            'streamingflow_tpu_torch.models.distributions; '
+            'streamingflow_tpu_torch.models.distributions, '
+            'streamingflow_tpu_torch.models.planning, '
+            'streamingflow_tpu_torch.ops.cost, '
+            'streamingflow_tpu_torch.layers.srvp_vgg, '
+            'streamingflow_tpu_torch.utils.tools, '
+            'streamingflow_tpu_torch.utils.network; '
             'print(sorted(m for m in ("jax", "flax", "orbax", "cv2", "PIL", '
-            '"yaml", "streamingflow_tpu") if m in sys.modules))')
+            '"yaml", "matplotlib", "streamingflow_tpu") '
+            'if m in sys.modules))')
     out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
                          env={**os.environ, 'PYTHONPATH': str(ROOT)})

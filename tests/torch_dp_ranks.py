@@ -122,20 +122,43 @@ def step_batch(cfg):
     return make_batch(cfg, WORLD, seed=5, n_points=512)
 
 
-def run_step(cfg, group=None):
+def planning_step_cfg():
+    """The tiny pillar8x step configuration with the planner on (9
+    candidates, GRU state 16)."""
+    cfg = step_cfg('pillar8x')
+    cfg.PLANNING.ENABLED = True
+    cfg.PLANNING.SAMPLE_NUM = 9
+    cfg.PLANNING.GRU_STATE_SIZE = 16
+    return cfg
+
+
+def planning_step_batch(cfg):
+    """step_batch with candidates that reach the occupied cells, and a goal
+    point on rank 0's row only: whether a goal is set is one flag over the
+    global batch, which rank 1 alone would not see."""
+    batch = step_batch(cfg)
+    rng = np.random.RandomState(9)
+    batch['sample_trajectory'] = np.cumsum(rng.uniform(
+        -1.0, 2.0, batch['sample_trajectory'].shape), axis=2).astype(
+        np.float32)
+    batch['target_point'][1] = 0.0
+    return batch
+
+
+def run_step(cfg, group=None, batch=None):
     """One fp64 step from the weights of seed 0 and the generator of seed
-    3: the data-parallel step on ``group``'s rank, else the one-process
-    step on the global batch.  Returns numpy: metrics, gradients (clipped,
-    as the step leaves them), the module's state after the step and Adam's
-    state."""
+    3 on ``batch`` (step_batch by default): the data-parallel step on
+    ``group``'s rank, else the one-process step on the global batch.
+    Returns numpy: metrics, gradients (clipped, as the step leaves them),
+    the module's state after the step and Adam's state."""
     trainer = P.build_trainer(cfg, device='cpu', seed=0, group=group)
     trainer.module.to(torch.float64)
     gen = torch.Generator().manual_seed(3)
+    batch = step_batch(cfg) if batch is None else batch
     if group is None:
-        metrics = P.train_step(trainer, step_batch(cfg), generator=gen)
+        metrics = P.train_step(trainer, batch, generator=gen)
     else:
-        metrics = make_data_parallel_step(cfg, group)(
-            trainer, step_batch(cfg), gen)
+        metrics = make_data_parallel_step(cfg, group)(trainer, batch, gen)
     opt = trainer.optimizer.state_dict()['state']
     names = [n for n, _ in trainer.module.named_parameters()]
     return dict(
@@ -315,3 +338,12 @@ def rank_work(directory):
         regression=_regression(group), losses=_losses(group),
         collect=_collect(group), complete=_complete(group),
         steps={b: run_step(step_cfg(b), group) for b in STEP_BACKBONES})
+
+
+def planning_rank_work():
+    """The data-parallel fp64 step with the planner on this rank of a world
+    of 2 (tests/test_torch_parallel_planning.py)."""
+    group = make_mesh(WORLD, device='cpu')
+    cfg = planning_step_cfg()
+    return dict(rank=group.rank,
+                step=run_step(cfg, group, planning_step_batch(cfg)))
