@@ -48,7 +48,11 @@ line (``phases``).  Phases, each printing one JSON line:
                  times a case for equal bits, the bf16 d weights' ptxas
                  report free of spills, beside it torch.matmul of the
                  compacted, pre-gathered products alone (gemm_alone_ms),
-                 and its time split by two ablations (kernel_parts)
+                 and its time split by two ablations (kernel_parts); the
+                 wide kernels (past 32 channels) at stage 3 (64 -> 64, nz
+                 11) and stage 4 (128 -> 128, nz 5) of the same clouds'
+                 DENSE_TAIL_FROM_STAGE 0 geometry, forward, d feats and d
+                 weights, bf16 and fp32, under the same bars
   6. tiny        a tiny camera+LiDAR forward on the card (kernels) vs the
                  same weights on the CPU (plain versions)
   7. tiny_spconv the same on the spconv8x backbone ('winfuse')
@@ -62,6 +66,19 @@ line (``phases``).  Phases, each printing one JSON line:
                  requests with kernel launch counts read around them
  10. forward_spconv  the same on the spconv8x backbone (full_cfg with
                  STREAMINGFLOW_BENCH_BACKBONE=spconv8x, ZFORM=winfuse)
+ 10b. sparse_options  the spconv8x encoder's other settings at flagship
+                 width with the seed-0 weights of one build_model: 'win',
+                 'sep' (equal to 'banded' and 'conv'), DENSE_TAIL_FROM_STAGE
+                 0, 2, 4 and 5, ENGINE 'gather' and 'tiled': --requests
+                 bf16 forecasts each (median latency, peak memory, K3
+                 launches a request held to K3_PER_FORECAST, capacity
+                 counters) and the encoder alone in fp32 against the 'sep',
+                 tail-3 one at 1e-4 of its scale (against its own plain
+                 versions on the card where a cap is hit); tail 1 (the
+                 stage-1 grid dense) as the bf16 encoder alone at the clouds
+                 its reckoned peak allows, fp32 on one cloud; one flagship
+                 training step on 'gather' and one on tail 0 (the wide d
+                 feats and d weights)
  11. bin_sum_grouped  the grouped bin-sum kernel vs the plain version and vs
                  bin_sum at the same cloud (presorted and unsorted, bf16 and
                  raw fp32, k_tiles 4 / 8 / 16, alone and through the
@@ -162,6 +179,8 @@ line (``phases``).  Phases, each printing one JSON line:
                  obj_box_col and L2, candidates not all zero, K1 and K2 once
                  a forecast
  20. kernels     every kernel of the port with its launches, error and times
+                 (the wide K3 rows: launches of sparse_options' tail-0
+                 forecasts and step)
                  (cli_launches: of phase cli; import_launches: of phase
                  reference_import's evaluation; planning_launches: of phases
                  planning and planning_cli); then a check that every
@@ -422,6 +441,319 @@ def phase_bin_sum(cfg, dev, results):
                      'max_abs_err_vs_plain': max_err(got5, plain5)[0],
                      'batched_ms': batched_ms, 'loop_and_stack_ms': loop_ms,
                      'batched_launches': 1}})
+
+
+# ---------------------------------------------------------- sparse options
+# The spconv8x encoder's other settings, each a change to
+# flagship_config(backbone='spconv8x').MODEL.SPARSE_ENCODER ('winfuse',
+# dense tail from stage 3): phase sparse_options.  'sep' stands for 'banded'
+# and 'conv' too (one route in the port, checked equal).
+SPARSE_OPTIONS = (
+    ('win', {'Z_FORMULATION': 'win'}),
+    ('sep', {'Z_FORMULATION': 'sep'}),
+    ('tail0', {'DENSE_TAIL_FROM_STAGE': 0}),
+    ('tail2', {'DENSE_TAIL_FROM_STAGE': 2}),
+    ('tail4', {'DENSE_TAIL_FROM_STAGE': 4}),
+    ('tail5', {'DENSE_TAIL_FROM_STAGE': 5}),
+    ('gather', {'ENGINE': 'gather'}),
+    ('tiled', {'ENGINE': 'tiled'}),
+)
+# K3 launches a spconv8x forecast by DENSE_TAIL_FROM_STAGE on the column
+# engine (5 clouds stacked, one launch a submanifold conv: conv_input, then
+# two a basic block of each column stage); none on the site engines
+K3_PER_FORECAST = {3: 9, 0: 17, 5: 17, 4: 13, 2: 5, 1: 1}
+# the encoder's fp32 output against the 'sep', tail-3 one (or the setting's
+# own with every kernel's plain version, where a cap is hit), of its scale
+SPARSE_OPTIONS_BAR = 1e-4
+
+
+def _sparse_cfg(changes):
+    from streamingflow_tpu_torch.data import flagship_config
+    cfg = flagship_config(backbone='spconv8x')
+    for k, v in changes.items():
+        setattr(cfg.MODEL.SPARSE_ENCODER, k, v)
+    return cfg
+
+
+def _k3_expected(se):
+    return (K3_PER_FORECAST[se.DENSE_TAIL_FROM_STAGE]
+            if se.ENGINE == 'column' else 0)
+
+
+def _capacity(enc):
+    """The encoder's capacity counters of its last forward (host ints) and
+    the caps hit: column caps filled, sites dropped at the entry, taps the
+    window plans dropped, site caps filled, sites past the tile caps."""
+    counts = {k: int(v) for k, v in {**enc.last_diagnostics,
+                                     **enc.last_capacity}.items()}
+    counts.update({f'n_dropped_{k}': int(v.sum())
+                   for k, v in enc.last_n_dropped.items()})
+    hits = sorted(k for k, v in counts.items() if v and (
+        'hit' in k or 'dropped' in k))
+    return counts, hits
+
+
+def _encoder_fp32(se, enc_state, pts, plain=False):
+    """The LiDAR encoder of ``se`` alone in fp32 (TF32 off) with the
+    seed-0 encoder weights on points (1, N, P, 5): (output, encoder, its
+    ``taps`` the found taps of its column stages); with ``plain`` every
+    kernel replaced by its plain version on the card."""
+    import copy
+    import torch
+    from streamingflow_tpu_torch.models import lidar_encoder as L
+    se = copy.deepcopy(se)
+    se.COMPUTE_DTYPE = 'float32'
+    enc = L.LidarBEVEncoder(se).to(pts.device).eval()
+    enc.load_state_dict(enc_state)
+    with torch.no_grad(), (_plain_on_card() if plain
+                           else contextlib.nullcontext()):
+        geo = enc.geometry(pts)
+        out = enc.ladder(geo.feats, geo)
+    torch.cuda.synchronize()
+    # the taps the column stages took (the route of a z formulation)
+    enc.taps = (torch.cat([g.found for g in geo.columns], 1)
+                if enc.column else None)
+    return out, enc
+
+
+def _held(out, ref):
+    err = float((out - ref).abs().max())
+    scale = float(ref.abs().max())
+    return {'max_abs_err': err, 'scale': scale,
+            'err_of_scale': err / max(scale, 1e-30),
+            'ok': err <= SPARSE_OPTIONS_BAR * scale}
+
+
+def _spconv_step(cfg, dev):
+    """One flagship spconv8x training step of cfg (fp32 parameters, the
+    LiDAR branch in bf16, MODEL.REMAT and REMAT_LADDER as configured), K3's
+    launches read around it: step s, peak GiB, losses, launches."""
+    import torch
+    import streamingflow_tpu_torch as P
+    from streamingflow_tpu_torch.data import make_batch
+    from streamingflow_tpu_torch.ops import winfuse as WF
+    trainer = P.build_trainer(cfg, device=dev, seed=0)
+    batch = make_batch(cfg, 1, seed=1, n_points=80000)
+    for a in ('launches', 'launches_dgrad', 'launches_wgrad'):
+        setattr(WF, a, 0)
+        setattr(WF, a + '_wide', {})
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    metrics = P.train_step(trainer, batch, generator=gen)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    for k, v in metrics.items():
+        if not torch.isfinite(v).all():
+            raise AssertionError(f'sparse_options step: {k} not finite')
+    for k, v in trainer.module.state_dict().items():
+        if not torch.isfinite(v).all():
+            raise AssertionError(f'sparse_options step: {k} not finite')
+    out = {'step_s': dt,
+           'peak_mem_gib': torch.cuda.max_memory_allocated() / 2 ** 30,
+           'losses': {k: float(v) for k, v in metrics.items()
+                      if not k.startswith('diag/')},
+           'diagnostics': {k[5:]: int(v) for k, v in metrics.items()
+                           if k.startswith('diag/')},
+           'launches': {a: getattr(WF, a) for a in (
+               'launches', 'launches_dgrad', 'launches_wgrad',
+               'launches_wide', 'launches_dgrad_wide',
+               'launches_wgrad_wide')}}
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sparse_options(dev, n_requests, card):
+    """The spconv8x encoder's other settings at flagship width, one set of
+    seed-0 weights through build_model: for each of SPARSE_OPTIONS,
+    n_requests bf16 forecasts (after a warm-up) with their median latency,
+    peak memory, K3 launches a request (held to K3_PER_FORECAST) and the
+    capacity counters; the encoder alone in fp32 (TF32 off) on one
+    request's 5 clouds against the 'sep', tail-3 encoder, or against its own
+    plain-on-card output where a cap is hit in either, at
+    SPARSE_OPTIONS_BAR of the output's scale.  DENSE_TAIL_FROM_STAGE 1 (the
+    stage-1 grid dense): its peak reckoned first, the bf16 encoder alone
+    at the clouds that fit, its fp32 output on one cloud.  Then one
+    flagship training step each on ENGINE 'gather' and on
+    DENSE_TAIL_FROM_STAGE 0 (the wide d feats and d weights).  Returns the
+    wide kernels' launches: forecasts (tail 0) and step (tail 0)."""
+    import math
+    import torch
+    import streamingflow_tpu_torch as P
+    from streamingflow_tpu_torch.data import make_batch
+    from streamingflow_tpu_torch.models import lidar_encoder as L
+    from streamingflow_tpu_torch.ops import winfuse as WF
+    bf16 = torch.bfloat16
+    t0 = time.perf_counter()
+    base = _sparse_cfg({})
+    state = P.build_model(base, device=dev, seed=0).state_dict()
+    enc_state = {k[len('lidar_encoder.'):]: v for k, v in state.items()
+                 if k.startswith('lidar_encoder.')}
+    pts = torch.from_numpy(make_batch(base, 1, seed=1, n_points=80000)
+                           ['points']).to(dev)
+    ref_se = _sparse_cfg({'Z_FORMULATION': 'sep'}).MODEL.SPARSE_ENCODER
+    ref, ref_enc = _encoder_fp32(ref_se, enc_state, pts)
+    _, ref_hits = _capacity(ref_enc)
+    del ref_enc
+    line = {'phase': 'sparse_options', 'clouds': pts.shape[1],
+            'reference': "'sep', DENSE_TAIL_FROM_STAGE 3, fp32",
+            'reference_caps_hit': ref_hits, 'bar': SPARSE_OPTIONS_BAR,
+            'settings': {}}
+    wide = {}
+    for name, changes in SPARSE_OPTIONS:
+        cfg = _sparse_cfg(changes)
+        se = cfg.MODEL.SPARSE_ENCODER
+        model = P.build_model(cfg, device=dev, dtype=bf16)
+        model.load_state_dict(state)
+        t, t_ = cfg.TIME_RECEPTIVE_FIELD, cfg.N_FUTURE_FRAMES
+
+        def request(seed):
+            batch = make_batch(cfg, 1, seed=seed, n_points=80000)
+            args = P.batch_to_model_args(batch, cfg, device=dev,
+                                         image_dtype=bf16)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with torch.no_grad():
+                out = model(**args, generator=torch.Generator(
+                    device=dev).manual_seed(seed))
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t1
+
+        request(100)                              # warm-up, not counted
+        torch.cuda.reset_peak_memory_stats()
+        WF.launches, WF.launches_wide = 0, {}
+        lat, per_request = [], []
+        for seed in range(1, n_requests + 1):
+            before = WF.launches
+            out, dt = request(seed)
+            lat.append(dt)
+            per_request.append(WF.launches - before)
+            seg = out['segmentation']
+            if seg.shape[:2] != (1, t + t_) or not torch.isfinite(seg).all():
+                raise AssertionError(f'sparse_options {name}: segmentation '
+                                     f'{tuple(seg.shape)}, finite '
+                                     f'{bool(torch.isfinite(seg).all())}')
+        counts, hits = _capacity(model.lidar_encoder)
+        entry = {'changes': changes, 'latency_s': lat,
+                 'median_latency_s': statistics.median(lat),
+                 'peak_mem_gib': torch.cuda.max_memory_allocated() / 2 ** 30,
+                 'k3_launches_per_request': per_request,
+                 'k3_expected': _k3_expected(se),
+                 'wide_launches': dict(WF.launches_wide),
+                 'capacity': counts, 'caps_hit': hits}
+        if name == 'tail0':
+            wide['forecast'] = {'launches_wide': dict(WF.launches_wide)}
+        del model, out
+        torch.cuda.empty_cache()
+        if any(n != entry['k3_expected'] for n in per_request):
+            raise AssertionError(f'sparse_options {name}: K3 launches '
+                                 f'{per_request}, want '
+                                 f'{entry["k3_expected"]} a request')
+        # the encoder alone in fp32
+        got, enc = _encoder_fp32(se, enc_state, pts)
+        _, enc_hits = _capacity(enc)
+        if enc_hits or ref_hits:
+            entry['fp32_against'] = 'plain on the card (a cap is hit)'
+            entry['fp32'] = _held(got, _encoder_fp32(
+                se, enc_state, pts, plain=True)[0])
+        else:
+            entry['fp32_against'] = 'reference'
+            entry['fp32'] = _held(got, ref)
+        if name == 'sep':
+            # 'banded' and 'conv' take the 'sep' route: every found tap, so
+            # the same maps, and outputs within the card's run-to-run
+            # spread of 'sep' (cuDNN's dense tail need not repeat its bits)
+            entry['sep_run_to_run'] = _held(
+                _encoder_fp32(se, enc_state, pts)[0], got)
+            for form in ('banded', 'conv'):
+                other = _sparse_cfg({'Z_FORMULATION': form})
+                o_out, o_enc = _encoder_fp32(other.MODEL.SPARSE_ENCODER,
+                                             enc_state, pts)
+                same = {**_held(o_out, got),
+                        'bits_equal': torch.equal(o_out, got),
+                        'taps_equal': torch.equal(o_enc.taps, enc.taps)}
+                entry[f'{form}_against_sep'] = same
+                if not (same['ok'] and same['taps_equal']):
+                    raise AssertionError(f'sparse_options: {form} differs '
+                                         f'from sep: {same}')
+        del got, enc
+        torch.cuda.empty_cache()
+        line['settings'][name] = entry
+        if not entry['fp32']['ok']:
+            raise AssertionError(f'sparse_options {name}: fp32 encoder '
+                                 f'{entry["fp32"]} ({entry["fp32_against"]})')
+
+    # DENSE_TAIL_FROM_STAGE 1: the stage-1 grid dense.  Reckoned peak: six
+    # bf16 activations of 16 channels over the whole 1600 x 1600 x 41 grid
+    # a cloud (the dense entry and its copy, a block's input, its conv's
+    # output, two BN temporaries)
+    se1 = _sparse_cfg({'DENSE_TAIL_FROM_STAGE': 1}).MODEL.SPARSE_ENCODER
+    act = se1.BASE_CHANNELS * math.prod(se1.SPARSE_SHAPE) * 2
+    free = torch.cuda.mem_get_info(dev)[0]
+    clouds = max(1, min(pts.shape[1], int(0.8 * free // (6 * act))))
+    enc1 = L.LidarBEVEncoder(se1).to(dev, bf16).eval()
+    enc1.load_state_dict(enc_state)
+    torch.cuda.reset_peak_memory_stats()
+    WF.launches = 0
+    lat = []
+    for _ in range(n_requests + 1):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            out = enc1(pts[:, :clouds])
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t1)
+        if not torch.isfinite(out).all():
+            raise AssertionError('sparse_options tail1: not finite')
+    k3 = WF.launches / (n_requests + 1)
+    entry = {'changes': {'DENSE_TAIL_FROM_STAGE': 1},
+             'cut': {'clouds': clouds, 'of': pts.shape[1],
+                     'what': 'the bf16 LiDAR encoder alone (not a forecast)',
+                     'reckoned_gib_a_cloud': 6 * act / 2 ** 30,
+                     'free_gib': free / 2 ** 30},
+             'latency_s': lat[1:], 'median_latency_s': statistics.median(
+                 lat[1:]),
+             'peak_mem_gib': torch.cuda.max_memory_allocated() / 2 ** 30,
+             'k3_launches_per_call': k3, 'k3_expected': _k3_expected(se1)}
+    del enc1, out
+    torch.cuda.empty_cache()
+    if k3 != entry['k3_expected']:
+        raise AssertionError(f'sparse_options tail1: K3 launches {k3}')
+    got, enc = _encoder_fp32(se1, enc_state, pts[:, :1])
+    ref1, ref1_enc = _encoder_fp32(ref_se, enc_state, pts[:, :1])
+    hits = _capacity(enc)[1] + _capacity(ref1_enc)[1]
+    entry['capacity'], entry['caps_hit'] = _capacity(enc)
+    entry['fp32_clouds'] = 1
+    entry['fp32_against'] = ('plain on the card (a cap is hit)' if hits
+                             else 'reference')
+    entry['fp32'] = _held(got, _encoder_fp32(se1, enc_state, pts[:, :1],
+                                             plain=True)[0]
+                          if hits else ref1)
+    del got, enc, ref1, ref1_enc
+    torch.cuda.empty_cache()
+    line['settings']['tail1'] = entry
+    if not entry['fp32']['ok']:
+        raise AssertionError(f'sparse_options tail1: fp32 encoder '
+                             f'{entry["fp32"]}')
+
+    # one flagship step each: the site engine, and columns all the way (the
+    # wide K3 forward, d feats and d weights)
+    steps = {}
+    for name, changes in (('gather', {'ENGINE': 'gather'}),
+                          ('tail0', {'DENSE_TAIL_FROM_STAGE': 0})):
+        steps[name] = _spconv_step(_sparse_cfg(changes), dev)
+    wide['step'] = steps['tail0']['launches']
+    if not all(wide['step'][f'launches_{k}_wide'] for k in ('dgrad',
+                                                            'wgrad')):
+        raise AssertionError(f'sparse_options tail0 step: wide launches '
+                             f'{wide["step"]}')
+    if steps['gather']['launches']['launches']:
+        raise AssertionError('sparse_options gather step launched K3')
+    emit({**line, 'steps': steps, 'seconds': time.perf_counter() - t0,
+          'card': card})
+    return wide
 
 
 def phase_bin_sum_grouped(cfg, dev, results):
@@ -963,7 +1295,7 @@ def _wgrad_parts_ms(feats, geo, g, nz):
 
 
 def _winfuse_bwd_case(name, feats, geo, w, nz, zmask, reps=5,
-                      dgrad=True):
+                      dgrad=True, ablations=True):
     """K3's backward on the card against the plain forward's autograd over
     the map's full found (the JAX ``_winfuse_bwd``): d feats through the
     forward's kernels over the reversed map (``subm_conv_dgrad``), d weights
@@ -977,7 +1309,8 @@ def _winfuse_bwd_case(name, feats, geo, w, nz, zmask, reps=5,
     d weights against the plain version's sums in fp64 (the exact value of
     the fp32 or bf16 inputs' products), 1e-4 of the scale: fp32 sums of
     ~10^6 products (the plain fp32 autograd's own distance from it is
-    reported beside)."""
+    reported beside).  ``ablations=False`` (the wide cases): no
+    gemm_alone_ms and no kernel_parts."""
     import torch
     from streamingflow_tpu_torch.ops import winfuse as WF
     dev = feats.device
@@ -1081,7 +1414,7 @@ def _winfuse_bwd_case(name, feats, geo, w, nz, zmask, reps=5,
                          bound_by=bound_by)
     out['wgrad']['runs_equal'] = len(reruns) + 1
     out['wgrad']['route'] = WF.route(feats.dtype)
-    if bf16:
+    if bf16 and ablations:
         out['wgrad']['gemm_alone_ms'], out['wgrad']['gemm_items'] = \
             _wgrad_gemm_alone(feats, geo, g, nz)
         out['wgrad']['kernel_parts'] = _wgrad_parts_ms(feats, geo, g, nz)
@@ -1150,7 +1483,29 @@ def k3_inputs(dev):
     return cases, types.SimpleNamespace(
         se=se, n=n, cs1=cs1, cs2=cs2, geo1=geo1, geo2=geo2, shape2=shape2,
         nz1=nz1, nz2=nz2, cap1=cap1, cap2=cs2.col_ids.shape[1], rand=rand,
-        weights=weights, path_like=path_like, down1=down1)
+        weights=weights, path_like=path_like, down1=down1, pts=pts)
+
+
+def k3_wide_inputs(dev, x):
+    """K3's inputs at stage 3 (64 -> 64, nz 11) and stage 4 (128 -> 128,
+    nz 5) of the same 5 clouds: the column geometry of
+    DENSE_TAIL_FROM_STAGE 0 (the model's own strided column convs and
+    caps), random features zeroed at the inactive sites: {name: (feats,
+    geo, weights, nz, zmask)} in bf16."""
+    import copy
+    from streamingflow_tpu_torch.models import lidar_encoder as L
+    from streamingflow_tpu_torch.ops import sparse_columns as SC
+    se = copy.deepcopy(x.se)
+    se.DENSE_TAIL_FROM_STAGE = 0
+    geo = L.LidarBEVEncoder(se).to(dev).geometry(x.pts[None])
+    cases = {}
+    for s, c in ((3, 64), (4, 128)):
+        zm = geo.zmasks[s - 1]
+        n, v, nz = zm.shape
+        feats = SC.mask_fused(x.rand(n, v, nz * c), zm).reshape(-1, nz * c)
+        cases[f'stage{s}'] = (feats, geo.columns[s - 1], x.weights(c, c),
+                              nz, zm)
+    return cases
 
 
 def _ptxas_report(log):
@@ -1259,6 +1614,33 @@ def phase_winfuse(dev, results):
         results[f'winfuse_{kind}'] = dict(
             max_abs_err=c['max_abs_err'], ms=c['ms'], plain_ms=c['plain_ms'],
             library_ms=None, bound_ms=c['bound_ms'], bound_by=c['bound_by'])
+
+    # the wide kernels (Cin, Cout past 32): stages 3 and 4 on columns
+    # (DENSE_TAIL_FROM_STAGE 0), bf16 as the forecast and the step run them
+    # and fp32, forward and backward, under the same bars
+    wide_cases, wide_bwd = [], []
+    for name, (f, geo, w, nz, zm) in k3_wide_inputs(dev, x).items():
+        wide_cases += [
+            _winfuse_case(name, f, geo, w, nz, zm, reps=5),
+            _winfuse_case(f'{name}_fp32', f.float(), geo, w.float(), nz, zm,
+                          reps=2)]
+        wide_bwd += [
+            _winfuse_bwd_case(name, f, geo, w, nz, zm, reps=3,
+                              ablations=False),
+            _winfuse_bwd_case(f'{name}_fp32', f.float(), geo, w.float(), nz,
+                              zm, reps=2, ablations=False)]
+        width = w.shape[2]
+        c = wide_cases[-2]
+        results[f'winfuse_wide{width}'] = dict(
+            max_abs_err=c['max_abs_err'], ms=c['kernel_ms'],
+            plain_ms=c['twin_ms'], library_ms=None,
+            bound_ms=c['bound_us'] / 1e3, bound_by=c['bound_by'])
+        for kind in ('dgrad', 'wgrad'):
+            c = wide_bwd[-2][kind]
+            results[f'winfuse_{kind}_wide{width}'] = dict(
+                max_abs_err=c['max_abs_err'], ms=c['ms'],
+                plain_ms=c['plain_ms'], library_ms=None,
+                bound_ms=c['bound_ms'], bound_by=c['bound_by'])
     results['winfuse_wgrad']['gemm_alone_ms'] = \
         main_bwd['wgrad']['gemm_alone_ms']
     # the tensor-core d weights keeps its sums in registers: no spill
@@ -1278,6 +1660,7 @@ def phase_winfuse(dev, results):
                         'stage2': geo2.n_dropped.tolist(),
                         'forced': drops},
           'cases': cases, 'backward_cases': bwd,
+          'wide_cases': wide_cases, 'wide_backward_cases': wide_bwd,
           'ptxas': _ptxas_report(cuda_lib.BUILD_LOG.get('winfuse', '')),
           'wgrad_ptxas': wgrad_ptxas,
           'down1_plain_ms_per_cloud': down1_ms,
@@ -3643,6 +4026,7 @@ def main(argv=None):
     launches['winfuse'] = phase_forward(
         flagship_config(backbone='spconv8x'), dev, args.requests,
         smi)['winfuse']
+    wide_launches = phase_sparse_options(dev, args.requests, smi)
     phase_bin_sum_grouped(cfg, dev, results)
     phase_patch_pool_bwd(cfg, dev, results)
     phase_train_tiny(dev)
@@ -3710,6 +4094,17 @@ def main(argv=None):
              replaces='streamingflow_tpu/ops/pallas_winfuse.py:288',
              launches=spconv_launches['winfuse_wgrad'],
              **results['winfuse_wgrad']),
+        *[dict(name=f'{kind}_wide{width}', route='cuda',
+               source=f'streamingflow_tpu_torch/csrc/{src}.cu',
+               replaces=f'streamingflow_tpu/ops/pallas_winfuse.py:{line}',
+               launches=wide_launches[leg][f'launches{key}_wide'].get(
+                   width, 0),
+               **results[f'{kind}_wide{width}'])
+          for kind, src, line, leg, key in (
+              ('winfuse', 'winfuse', 153, 'forecast', ''),
+              ('winfuse_dgrad', 'winfuse', 288, 'step', '_dgrad'),
+              ('winfuse_wgrad', 'winfuse_wgrad', 288, 'step', '_wgrad'))
+          for width in (64, 128)],
         dict(name='bin_sum_grouped', route='cuda',
              source='streamingflow_tpu_torch/csrc/bin_sum_grouped.cu',
              replaces='tools/exp_bin_variants.py:26',

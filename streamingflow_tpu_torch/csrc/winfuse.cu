@@ -55,6 +55,18 @@
 // cores would miss 1e-5, so fp32 keeps the exact CUDA-core kernel of the
 // first port: rows widened in shared memory, one lane an output channel,
 // all-zero input rows skipped uniformly across a lane group.
+//
+// Past 32 channels in or out (stages 3 and 4 on columns: 64 and 128, with
+// DENSE_TAIL_FROM_STAGE 0, 4 or 5) a first, simple design: block row y of
+// the grid computes output channels 32y .. 32y + 31, so a tile's source
+// rows are gathered once per 32 output channels.
+//   - bf16: the same warp-specialised kernel with CP 32, 64 or 128 and
+//     N = 32; the 9 taps' B no longer fit in shared memory beside the
+//     ring, so each ring step carries its tap's B fragments for the block's
+//     channels (one more bulk copy), in a ring of 3.
+//   - fp32: the CUDA-core tile with the rows staged at 32, 64 or 128
+//     channels and the tap's weights staged with them, each item's sum
+//     taken over the input channels 32 at a time.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -227,6 +239,166 @@ cudaError_t by_cout(const float* feats, const int* src, const float* w,
                          stream);
 }
 
+// More than 32 channels in or out (stages 3 and 4 on columns: 64 and 128).
+// The first design's tile of columns, with block (x, y) computing output
+// channels 32y .. 32y + 31 (a lane each) of its tiles: the rows of a tap
+// are staged at CIN (32, 64 or 128) channels, and the tap's weights for the
+// block's channels, w_s [3][CIN][32], are staged with them; each item's
+// sum runs over the input channels 32 at a time.
+//
+// Shared memory: x_s [tv][nz + 2][CIN], w_s [3][CIN][32], then flag_s,
+// off_s and src_s as in winfuse_kernel.
+constexpr int kWideG = 32;
+
+template <int CIN>
+__global__ void __launch_bounds__(kThreads)
+wide_kernel(const float* __restrict__ feats, const int* __restrict__ src,
+            const float* __restrict__ w, float* __restrict__ out, int n_out,
+            int nz, int cin, int cout, int tv) {
+  constexpr int G = kWideG;
+  constexpr int kGroups = kThreads / G;
+  extern __shared__ float4 smem4[];
+  const int rows = nz + 2;
+  const int n_items = tv * nz;  // <= kThreads
+  float* x_s = reinterpret_cast<float*>(smem4);
+  float* w_s = x_s + tv * rows * CIN;
+  int* flag_s = reinterpret_cast<int*>(w_s + 3 * CIN * G);
+  int* off_s = flag_s + tv * rows;
+  int* src_s = off_s + n_items;
+  const int tid = threadIdx.x;
+  const int lane = tid % G;
+  const int group = tid / G;
+  const int j0 = G * blockIdx.y;
+
+  for (int e = tid; e < tv * rows * CIN; e += kThreads) x_s[e] = 0.f;
+  for (int e = tid; e < tv * rows; e += kThreads) flag_s[e] = 0;
+  for (int e = tid; e < n_items; e += kThreads)
+    off_s[e] = (e / nz) * rows + e % nz;
+
+  const int row_len = nz * cin;
+  const bool vec = cin == CIN &&
+                   reinterpret_cast<uintptr_t>(feats) % 16 == 0;
+  const int n_tiles = (n_out + tv - 1) / tv;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int v0 = tile * tv;
+    float acc[G];
+#pragma unroll
+    for (int t = 0; t < G; ++t) acc[t] = 0.f;
+    __syncthreads();  // the previous tile's taps are no longer read
+    for (int e = tid; e < kTaps * tv; e += kThreads) {
+      const int v = v0 + e % tv;
+      const size_t at = static_cast<size_t>(e / tv) * n_out + v;
+      src_s[e] = v < n_out ? src[at] : -1;
+    }
+    for (int k = 0; k < kTaps; ++k) {
+      __syncthreads();  // src_s is written, the previous tap's rows read
+      for (int e = tid; e < 3 * CIN * G; e += kThreads) {
+        const int j = e % G;
+        const int i = (e / G) % CIN;
+        const int tz = e / (G * CIN);
+        w_s[e] = j0 + j < cout && i < cin
+                     ? w[((3 * k + tz) * cin + i) * cout + j0 + j]
+                     : 0.f;
+      }
+      if (tid < n_items) {
+        const int cc = tid / nz;
+        const int from = src_s[k * tv + cc];
+        const int row = off_s[tid] + 1;
+        bool nonzero = false;
+        if (from >= 0) {
+          const float* p = feats + static_cast<size_t>(from) * row_len +
+                           (tid - cc * nz) * cin;
+          float* dst = x_s + row * CIN;
+          if (vec) {
+            for (int q = 0; q < CIN / 4; ++q) {
+              const float4 o = reinterpret_cast<const float4*>(p)[q];
+              reinterpret_cast<float4*>(dst)[q] = o;
+              nonzero |= o.x != 0.f || o.y != 0.f || o.z != 0.f ||
+                         o.w != 0.f;
+            }
+          } else {
+            for (int i = 0; i < cin; ++i) {
+              dst[i] = p[i];
+              nonzero |= p[i] != 0.f;
+            }
+          }
+        }
+        flag_s[row] = nonzero;
+      }
+      __syncthreads();
+      for (int tz = 0; tz < 3; ++tz) {
+        for (int c0 = 0; c0 < CIN; c0 += 32) {
+          float wr[32];
+          const float* wp = w_s + (tz * CIN + c0) * G + lane;
+#pragma unroll
+          for (int i = 0; i < 32; ++i) wr[i] = wp[i * G];
+#pragma unroll
+          for (int t = 0; t < G; ++t) {
+            const int item = group + kGroups * t;
+            if (item >= n_items) break;
+            const int row = off_s[item] + tz;  // input z = zo + tz - 1
+            if (!flag_s[row]) continue;
+            const float4* xr =
+                reinterpret_cast<const float4*>(x_s + row * CIN + c0);
+            float s = 0.f;
+#pragma unroll
+            for (int q = 0; q < 8; ++q) {
+              const float4 xv = xr[q];
+              s = fmaf(xv.x, wr[4 * q + 0], s);
+              s = fmaf(xv.y, wr[4 * q + 1], s);
+              s = fmaf(xv.z, wr[4 * q + 2], s);
+              s = fmaf(xv.w, wr[4 * q + 3], s);
+            }
+            acc[t] += s;
+          }
+        }
+      }
+    }
+    if (j0 + lane < cout) {
+#pragma unroll
+      for (int t = 0; t < G; ++t) {
+        const int item = group + kGroups * t;
+        if (item >= n_items) break;
+        const int c = item / nz;
+        if (v0 + c >= n_out) break;
+        out[(static_cast<size_t>(v0) * nz + item) * cout + j0 + lane] =
+            acc[t];
+      }
+    }
+  }
+}
+
+template <int CIN>
+cudaError_t launch_wide(const float* feats, const int* src, const float* w,
+                        float* out, int n_out, int nz, int cin, int cout,
+                        int sms, cudaStream_t stream) {
+  auto smem_of = [&](int tv) {
+    const size_t rows = static_cast<size_t>(tv) * (nz + 2);
+    return sizeof(float) * (rows * CIN + 3 * CIN * kWideG) +
+           sizeof(int) * (rows + static_cast<size_t>(tv) * nz + kTaps * tv);
+  };
+  int tv = kThreads / nz;
+  while (tv > 1 && smem_of(tv) > static_cast<size_t>(kMaxSmem)) --tv;
+  const size_t smem = smem_of(tv);
+  if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      wide_kernel<CIN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, wide_kernel<CIN>, kThreads, smem)) != cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int chunks = (cout + kWideG - 1) / kWideG;
+  const int tiles = (n_out + tv - 1) / tv;
+  const int slots = sms * per_sm / chunks > 0 ? sms * per_sm / chunks : 1;
+  const int blocks = tiles < slots ? tiles : slots;
+  wide_kernel<CIN><<<dim3(blocks, chunks), kThreads, smem, stream>>>(
+      feats, src, w, out, n_out, nz, cin, cout, tv);
+  return cudaGetLastError();
+}
+
 }  // namespace fp32
 
 // ------------------------------------------------------------------ bf16
@@ -239,6 +411,8 @@ constexpr int kConsumerWarps = 8;
 constexpr int kConsumers = 32 * kConsumerWarps;
 constexpr int kThreads = kConsumers + 32;  // and one warp for the copies
 constexpr int kStages = 6;     // ring of staged (tile, tap) steps
+constexpr int kStagesWide = 3;  // the wide kernel's ring (a step carries B)
+constexpr int kWideN = 32;     // output channels a block of the wide kernel
 constexpr int kMaxTile = 32;   // columns of a tile, a lane of the copy warp each
 constexpr int kTail = 4;       // zero rows after a stage's columns
 constexpr int kNoCol = 63;     // column of an item past the tile
@@ -308,14 +482,28 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+template <bool W>
+__host__ __device__ constexpr int ring_steps() {
+  return W ? kStagesWide : kStages;
+}
 template <int CP>
 __host__ __device__ constexpr size_t stage_bytes(int tile, int nz) {
   return static_cast<size_t>(tile * (nz + 2) + kTail) * Geo<CP>::kPitch;
 }
-template <int CP, int NT>
+// bytes of one tap's B fragments for kWideN output channels (wide kernel)
+template <int CP>
+__host__ __device__ constexpr size_t tap_b_bytes() {
+  return static_cast<size_t>(Geo<CP>::kPad) * kWideN * 2;
+}
+// bytes of one ring step: its staged rows, and in the wide kernel its B
+template <int CP, bool W>
+__host__ __device__ constexpr size_t step_bytes(int tile, int nz) {
+  return stage_bytes<CP>(tile, nz) + (W ? tap_b_bytes<CP>() : 0);
+}
+template <int CP, int NT, bool W>
 __host__ __device__ constexpr size_t smem_bytes(int tile, int nz) {
-  return static_cast<size_t>(kTaps) * Geo<CP>::kPad * 8 * NT * 2 +
-         kStages * (stage_bytes<CP>(tile, nz) + 16 + 4) +
+  return (W ? 0 : static_cast<size_t>(kTaps) * Geo<CP>::kPad * 8 * NT * 2) +
+         ring_steps<W>() * (step_bytes<CP, W>(tile, nz) + 16 + 4) +
          4 * kConsumers * (frags_per_warp<NT>() + 1);
 }
 
@@ -336,7 +524,14 @@ __host__ __device__ constexpr size_t smem_bytes(int tile, int nz) {
 //          c*(nz + 2) + zo (past the tile's items: kNoCol << 16 | the tail)
 //   fmask_s [kConsumerWarps][kFrags] uint32: the columns a fragment's
 //          items lie in
-template <int CP, int NT>
+//
+// W (wide, Cin or Cout past 32; CP 32, 64 or 128, NT 4): no w_s.  Block
+// (x, y) computes output channels kWideN*y .. kWideN*y + 31, and each ring
+// step carries, after its rows, its tap's B fragments for those channels
+// (tap_b_bytes, in w_s's order, one bulk copy by the copy warp's lane 0
+// from wk as the wrapper's wide_tap_weights lays it out); the ring has
+// kStagesWide steps.
+template <int CP, int NT, bool W>
 __global__ void __launch_bounds__(kThreads)
 winfuse_kernel(const __nv_bfloat16* __restrict__ feats,
                const int* __restrict__ src,
@@ -347,20 +542,22 @@ winfuse_kernel(const __nv_bfloat16* __restrict__ feats,
   constexpr int kSteps = G::kSteps;
   constexpr int kPitch = G::kPitch;
   constexpr int kFrags = frags_per_warp<NT>();
+  constexpr int kRing = ring_steps<W>();
   const int tile = 1 << tile_log2;
   extern __shared__ uint4 smem[];
   uint4* w_s = smem;
-  const int w_vecs = kTaps * kSteps * (NT / 2) * 32;
+  const int w_vecs = W ? 0 : kTaps * kSteps * (NT / 2) * 32;
   unsigned char* rows = reinterpret_cast<unsigned char*>(w_s + w_vecs);
   const size_t stage = stage_bytes<CP>(tile, nz);
-  uint64_t* bars = reinterpret_cast<uint64_t*>(rows + kStages * stage);
-  uint32_t* found_s = reinterpret_cast<uint32_t*>(bars + 2 * kStages);
-  int* arow_s = reinterpret_cast<int*>(found_s + kStages);
+  const size_t step = step_bytes<CP, W>(tile, nz);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(rows + kRing * step);
+  uint32_t* found_s = reinterpret_cast<uint32_t*>(bars + 2 * kRing);
+  int* arow_s = reinterpret_cast<int*>(found_s + kRing);
   uint32_t* fmask_s =
       reinterpret_cast<uint32_t*>(arow_s + kConsumers * kFrags);
   const uint32_t rows_u32 = smem_u32(rows);
   const uint32_t full_u32 = smem_u32(bars);
-  const uint32_t empty_u32 = full_u32 + 8 * kStages;
+  const uint32_t empty_u32 = full_u32 + 8 * kRing;
 
   const int tid = threadIdx.x;
   const int lane = tid % 32;
@@ -390,11 +587,12 @@ winfuse_kernel(const __nv_bfloat16* __restrict__ feats,
     }
   }
 
-  // B fragments of every tap, staged once.  Lane l's fragment of n-tile nt
+  // B fragments of every tap, staged once (the wide kernel's come with
+  // each step).  Lane l's fragment of n-tile nt
   // and k16 step ks holds b0 = B[k0, k0 + 1][n], b1 = B[k0 + 8, k0 + 9][n]
   // with k0 = 16*ks + 2*(l % 4), n = 8*nt + l/4.  wk is read 16 bytes (8 n
   // values of one K row) a load and each value put in its place.
-  {
+  if constexpr (!W) {
     __nv_bfloat16* wb = reinterpret_cast<__nv_bfloat16*>(w_s);
     for (int e = tid; e < kTaps * G::kPad * NT; e += kThreads) {
       const uint4 v = __ldg(reinterpret_cast<const uint4*>(wk) + e);
@@ -414,10 +612,9 @@ winfuse_kernel(const __nv_bfloat16* __restrict__ feats,
     }
   }
   // every staged row zero, so every column of every stage starts zero
-  for (int e = tid; e < kStages * static_cast<int>(stage / 16);
-       e += kThreads)
+  for (int e = tid; e < kRing * static_cast<int>(step / 16); e += kThreads)
     reinterpret_cast<uint4*>(rows)[e] = make_uint4(0, 0, 0, 0);
-  if (tid < kStages) {
+  if (tid < kRing) {
     mbar_init(full_u32 + 8 * tid, 1);
     mbar_init(empty_u32 + 8 * tid, kConsumerWarps);
   }
@@ -430,6 +627,10 @@ winfuse_kernel(const __nv_bfloat16* __restrict__ feats,
     // copy.  A column whose tap is not found keeps stale rows: the
     // consumers read the zero tail in its place.
     const uint32_t row_bytes = nz * kPitch;
+    const uint32_t b_bytes = W ? tap_b_bytes<CP>() : 0;
+    // this block's output channels' B fragments, tap after tap
+    const char* wk_chunk = reinterpret_cast<const char*>(wk) +
+                           static_cast<size_t>(blockIdx.y) * kTaps * b_bytes;
     const bool mine = lane < tile;
     int cur[kTaps], nxt[kTaps];
     int s = 0;
@@ -445,21 +646,26 @@ winfuse_kernel(const __nv_bfloat16* __restrict__ feats,
       if (lt == 0) continue;
 #pragma unroll
       for (int k = 0; k < kTaps; ++k, ++s) {
-        const int b = s % kStages;
-        mbar_wait(empty_u32 + 8 * b, ((s / kStages) & 1) ^ 1);
+        const int b = s % kRing;
+        mbar_wait(empty_u32 + 8 * b, ((s / kRing) & 1) ^ 1);
         const int from = cur[k];
-        const uint32_t base = rows_u32 + b * stage;
+        const uint32_t base = rows_u32 + b * step;
         // the found bits and the copies' bytes, then the copies
         const uint32_t found = __ballot_sync(0xffffffffu, from >= 0);
         __syncwarp();
         if (lane == 0) {
           found_s[b] = found;
-          mbar_arrive_tx(full_u32 + 8 * b, __popc(found) * row_bytes);
+          mbar_arrive_tx(full_u32 + 8 * b,
+                         __popc(found) * row_bytes + b_bytes);
         }
         __syncwarp();
         if (from >= 0)
           bulk_copy(base + (lane * (nz + 2) + 1) * kPitch,
                     feats + static_cast<size_t>(from) * nz * CP, row_bytes,
+                    full_u32 + 8 * b);
+        if (W && lane == 0)
+          bulk_copy(base + static_cast<uint32_t>(stage),
+                    wk_chunk + static_cast<size_t>(k) * b_bytes, b_bytes,
                     full_u32 + 8 * b);
       }
     }
@@ -479,8 +685,8 @@ winfuse_kernel(const __nv_bfloat16* __restrict__ feats,
   int s = 0;
   for (int lt = 0; lt < my_tiles; ++lt) {
     for (int k = 0; k < kTaps; ++k, ++s) {
-      const int b = s % kStages;
-      mbar_wait(full_u32 + 8 * b, (s / kStages) & 1);
+      const int b = s % kRing;
+      mbar_wait(full_u32 + 8 * b, (s / kRing) & 1);
       const uint32_t bits = found_s[b];
       // the fragments with a found column (the others add nothing)
       uint32_t live = 0;
@@ -488,7 +694,7 @@ winfuse_kernel(const __nv_bfloat16* __restrict__ feats,
       for (int f = 0; f < kFrags; ++f)
         if (bits & fmask_s[warp * kFrags + f]) live |= 1u << f;
       if (live) {
-        const uint32_t base = rows_u32 + b * stage;
+        const uint32_t base = rows_u32 + b * step;
         const uint32_t tail = base + tile * (nz + 2) * kPitch;
         // this lane's row of each live fragment: its item's staged rows, or
         // the zero tail where the item's column has no found tap
@@ -501,7 +707,10 @@ winfuse_kernel(const __nv_bfloat16* __restrict__ feats,
                        ? base + (e & 0xffff) * kPitch
                        : tail;
         }
-        const uint4* wt = w_s + k * kSteps * (NT / 2) * 32 + lane;
+        const uint4* wt =
+            (W ? reinterpret_cast<const uint4*>(rows + b * step + stage)
+               : w_s + k * kSteps * (NT / 2) * 32) +
+            lane;
         // the fragments of k16 step ks: B for two n-tiles a uint4, and A
         // of each live fragment; this lane's 8-value chunk of K is staged
         // row + kk / CP, chunk (kk % CP) / 8 (past 3*CP, CP = 8: zeros)
@@ -542,6 +751,7 @@ winfuse_kernel(const __nv_bfloat16* __restrict__ feats,
     }
     // the tile's outputs, every item
     const int v0 = (blockIdx.x + lt * gridDim.x) * tile;
+    const int j0 = W ? kWideN * blockIdx.y : 0;
 #pragma unroll
     for (int f = 0; f < kFrags; ++f) {
 #pragma unroll
@@ -551,7 +761,7 @@ winfuse_kernel(const __nv_bfloat16* __restrict__ feats,
         __nv_bfloat16* o = out + (static_cast<size_t>(v0) * nz + it) * cout;
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
-          const int jj = 8 * nt + 2 * q;
+          const int jj = j0 + 8 * nt + 2 * q;
           const float x0 = acc[f][nt][2 * h], x1 = acc[f][nt][2 * h + 1];
           if (jj + 1 < cout && cout % 2 == 0) {
             *reinterpret_cast<__nv_bfloat162*>(o + jj) =
@@ -572,36 +782,41 @@ winfuse_kernel(const __nv_bfloat16* __restrict__ feats,
 
 // columns of a tile: the most (a power of 2, <= kMaxTile) whose items fit
 // the consumers' fragments and whose ring fits in shared memory
-template <int CP, int NT>
+template <int CP, int NT, bool W>
 int tile_columns(int nz) {
   int tile = kMaxTile;
   while (tile > 1 &&
          ((tile * nz + 15) / 16 > kConsumerWarps * frags_per_warp<NT>() ||
-          smem_bytes<CP, NT>(tile, nz) > kMaxSmem))
+          smem_bytes<CP, NT, W>(tile, nz) > kMaxSmem))
     tile /= 2;
   return tile;
 }
 
-template <int CP, int NT>
+template <int CP, int NT, bool W = false>
 cudaError_t launch(const void* feats, const int* src, const void* wk,
                    void* out, int n_out, int nz, int cout, int sms,
                    cudaStream_t stream) {
-  const int tile = tile_columns<CP, NT>(nz);
+  const int tile = tile_columns<CP, NT, W>(nz);
   int tile_log2 = 0;
   while ((1 << tile_log2) < tile) ++tile_log2;
-  const size_t smem = smem_bytes<CP, NT>(tile, nz);
+  const size_t smem = smem_bytes<CP, NT, W>(tile, nz);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      winfuse_kernel<CP, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      winfuse_kernel<CP, NT, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   int per_sm = 0;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, winfuse_kernel<CP, NT>, kThreads, smem)) != cudaSuccess)
+           &per_sm, winfuse_kernel<CP, NT, W>, kThreads, smem)) !=
+      cudaSuccess)
     return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  // the wide kernel: one block row a kWideN-channel chunk of the output
+  const int chunks = W ? (cout + kWideN - 1) / kWideN : 1;
   const int tiles = (n_out + tile - 1) / tile;
-  const int blocks = tiles < sms * per_sm ? tiles : sms * per_sm;
-  winfuse_kernel<CP, NT><<<blocks, kThreads, smem, stream>>>(
+  const int slots = sms * per_sm / chunks > 0 ? sms * per_sm / chunks : 1;
+  const int blocks = tiles < slots ? tiles : slots;
+  winfuse_kernel<CP, NT, W><<<dim3(blocks, chunks), kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(feats), src,
       static_cast<const __nv_bfloat16*>(wk),
       static_cast<__nv_bfloat16*>(out), n_out, nz, cout, tile_log2);
@@ -630,11 +845,12 @@ cudaError_t sm_count(int* sms) {
 
 // feats (R, nz*cin) fp32 rows; src (9, n_out) int32 rows of feats, -1 for
 // a tap that is not taken; w (27, cin, cout) fp32; out (n_out, nz*cout)
-// fp32.  1 <= cin, cout <= 32, 1 <= nz <= 256.
+// fp32.  1 <= cin, cout <= 128 (past 32 in or out: the wide kernel),
+// 1 <= nz <= 256.
 extern "C" int sf_winfuse_fp32(const void* feats, const int* src,
                                const void* w, void* out, int n_out, int nz,
                                int cin, int cout, void* stream) {
-  if (cin < 1 || cin > 32 || cout < 1 || cout > 32 || nz < 1 ||
+  if (cin < 1 || cin > 128 || cout < 1 || cout > 128 || nz < 1 ||
       nz > fp32::kThreads)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_out == 0) return 0;
@@ -645,7 +861,15 @@ extern "C" int sf_winfuse_fp32(const void* feats, const int* src,
   const float* wf = static_cast<const float*>(w);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cin <= 8)
+  if (cin > 32 || cout > 32) {
+    if (cin <= 32)
+      err = fp32::launch_wide<32>(f, src, wf, o, n_out, nz, cin, cout, sms, s);
+    else if (cin <= 64)
+      err = fp32::launch_wide<64>(f, src, wf, o, n_out, nz, cin, cout, sms, s);
+    else
+      err = fp32::launch_wide<128>(f, src, wf, o, n_out, nz, cin, cout, sms,
+                                   s);
+  } else if (cin <= 8)
     err = fp32::by_cout<8>(f, src, wf, o, n_out, nz, cin, cout, sms, s);
   else if (cin <= 16)
     err = fp32::by_cout<16>(f, src, wf, o, n_out, nz, cin, cout, sms, s);
@@ -654,17 +878,20 @@ extern "C" int sf_winfuse_fp32(const void* feats, const int* src,
   return static_cast<int>(err);
 }
 
-// feats (R, nz*cp) bf16 rows at channel pitch cp (8, 16 or 32; channels
-// past the layer's cin zero), 16-byte aligned; src (9, n_out) int32 as
-// above; wk (9, k_pad, n_pad) bf16 per-tap weights, row tz*cp + i, zero
-// past cin and cout, k_pad = 3*cp rounded up to 16, n_pad = 16 if
-// cout <= 16 else 32; out (n_out, nz*cout) bf16.  1 <= cout <= 32,
-// 1 <= nz <= 256.
+// feats (R, nz*cp) bf16 rows at channel pitch cp (channels past the
+// layer's cin zero), 16-byte aligned; src (9, n_out) int32 as above; out
+// (n_out, nz*cout) bf16; 1 <= nz <= 256.  Narrow (cp 8, 16 or 32 and
+// 1 <= cout <= 32): wk (9, k_pad, n_pad) bf16 per-tap weights, row
+// tz*cp + i, zero past cin and cout, k_pad = 3*cp rounded up to 16,
+// n_pad = 16 if cout <= 16 else 32.  Wide (cp 64 or 128, or cp 32 with
+// 32 < cout <= 128): wk the B fragments of every 32-channel output chunk
+// and tap in the kernel's order (the wrapper's wide_tap_weights).
 extern "C" int sf_winfuse_bf16(const void* feats, const int* src,
                                const void* wk, void* out, int n_out, int nz,
                                int cp, int cout, void* stream) {
-  if ((cp != 8 && cp != 16 && cp != 32) || cout < 1 || cout > 32 ||
-      nz < 1 || nz > 256)
+  const bool wide = cp > 32 || cout > 32;
+  if ((cp != 8 && cp != 16 && cp != 32 && cp != 64 && cp != 128) ||
+      (wide && cp < 32) || cout < 1 || cout > 128 || nz < 1 || nz > 256)
     return static_cast<int>(cudaErrorInvalidValue);
   if (reinterpret_cast<uintptr_t>(feats) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(wk) % 16 != 0)
@@ -674,7 +901,17 @@ extern "C" int sf_winfuse_bf16(const void* feats, const int* src,
   cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cp == 8)
+  if (wide) {
+    if (cp == 32)
+      err = tc::launch<32, 4, true>(feats, src, wk, out, n_out, nz, cout, sms,
+                                    s);
+    else if (cp == 64)
+      err = tc::launch<64, 4, true>(feats, src, wk, out, n_out, nz, cout, sms,
+                                    s);
+    else
+      err = tc::launch<128, 4, true>(feats, src, wk, out, n_out, nz, cout,
+                                     sms, s);
+  } else if (cp == 8)
     err = tc::by_cout<8>(feats, src, wk, out, n_out, nz, cout, sms, s);
   else if (cp == 16)
     err = tc::by_cout<16>(feats, src, wk, out, n_out, nz, cout, sms, s);

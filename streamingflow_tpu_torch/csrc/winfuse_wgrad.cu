@@ -58,6 +58,12 @@
 //     same from run to run.
 // fp32 (the exact check path): TF32 would miss the 1e-4 bar, so fp32 keeps
 // the CUDA-core kernel of the first port, below.
+//
+// Past 32 channels in or out (stages 3 and 4 on columns) both kernels split
+// dW into 32 x 32 chunks of (Cin, Cout), one block row of the grid each:
+// the bf16 kernel stages 32-channel slices of the source rows and reads its
+// 32 channels of the staged cotangent rows (whole rows), the fp32 kernel
+// gives its units to the chunk.  The partials still add in block order.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -97,6 +103,10 @@ constexpr int kSmemBudget = 96 * 1024;  // bytes of a chunk's staging
 //     larger blocks (narrow widths) take every groups-th item.
 //   - At the end the groups' sums are added in a fixed order in shared
 //     memory and each block writes one partial (27, Cin, Cout).
+//   - W (wide: Cin or Cout past 32): block (x, y) owns the 32 x 32 chunk y
+//     of (Cin, Cout) (chunk y % ceil(Cin / 32) of Cin, y / ceil(Cin / 32)
+//     of Cout), its units over that chunk; the staging keeps whole rows.
+//     Up to 32 channels (W false) the chunk is the whole of (Cin, Cout).
 //
 // Shared memory of a chunk of tv columns (rows = nz + 2):
 //   g_s    [tv * nz][cout4] cotangent rows, channels past cout zero
@@ -107,16 +117,24 @@ constexpr int kSmemBudget = 96 * 1024;  // bytes of a chunk's staging
 //   src_s  [9][tv] the chunk's source row of each tap, -1 if not taken
 //   colf_s [tv] 1 where the column has an active item
 //   count_s     the number of active items
+template <bool W>
 __global__ void __launch_bounds__(kThreads)
 wgrad_kernel(const float* __restrict__ feats, const int* __restrict__ src,
              const float* __restrict__ g, float* __restrict__ part,
              int n_out, int nz, int cin, int cout, int tv, int groups,
              int vec_f, int vec_g) {
   extern __shared__ float4 smem4[];
-  const int cout4 = (cout + 3) & ~3;
-  const int j4n = cout4 >> 2;
-  const int units = 3 * cin * j4n;
-  const int units_pad = (units + 31) & ~31;
+  const int cout4 = (cout + 3) & ~3;  // the staged cotangent rows' pitch
+  // this block's chunk of (Cin, Cout): all of it unless W
+  const int a_chunks = W ? (cin + 31) / 32 : 1;
+  const int i0 = W ? 32 * (blockIdx.y % a_chunks) : 0;
+  const int j0 = W ? 32 * (blockIdx.y / a_chunks) : 0;
+  const int cin_c = W ? min(32, cin - i0) : cin;
+  const int cout_c = W ? min(32, cout - j0) : cout;
+  const int j4n = ((cout_c + 3) & ~3) >> 2;
+  const int units = 3 * cin_c * j4n;
+  // the launch's units a group: those of a whole 32 x 32 chunk if W
+  const int units_pad = W ? blockDim.x / groups : (units + 31) & ~31;
   const int rows = nz + 2;
   const int n_items = tv * nz;
   float* g_s = reinterpret_cast<float*>(smem4);
@@ -132,8 +150,8 @@ wgrad_kernel(const float* __restrict__ feats, const int* __restrict__ src,
   const int unit = tid % units_pad;
   const int group = tid / units_pad;  // a whole warp is in one group
   const bool mine = unit < units;
-  const int tz = unit / (cin * j4n);
-  const int ci = (unit / j4n) % cin;
+  const int tz = unit / (cin_c * j4n);
+  const int ci = (unit / j4n) % cin_c;
   const int j4 = unit % j4n;
   float acc[kTaps][4];
 #pragma unroll
@@ -180,7 +198,9 @@ wgrad_kernel(const float* __restrict__ feats, const int* __restrict__ src,
     }
     __syncthreads();
     for (int it = tid; it < n_items; it += nthr) {
-      const float4* r = reinterpret_cast<const float4*>(g_s + it * cout4);
+      // the block's output channels of the row
+      const float4* r =
+          reinterpret_cast<const float4*>(g_s + it * cout4 + j0);
       bool any = false;
       for (int q = 0; q < j4n; ++q) {
         const float4 a = r[q];
@@ -234,9 +254,9 @@ wgrad_kernel(const float* __restrict__ feats, const int* __restrict__ src,
           const int c = it / nz;
           if (src_s[k * tv + c] < 0) continue;
           const int zo = it - c * nz;
-          const float xv = x_s[(c * rows + zo + tz) * cin + ci];
-          const float4 gv =
-              reinterpret_cast<const float4*>(g_s)[it * j4n + j4];
+          const float xv = x_s[(c * rows + zo + tz) * cin + i0 + ci];
+          const float4 gv = reinterpret_cast<const float4*>(
+              g_s)[it * (cout4 >> 2) + (j0 >> 2) + j4];
           acc[k][0] = fmaf(xv, gv.x, acc[k][0]);
           acc[k][1] = fmaf(xv, gv.y, acc[k][1]);
           acc[k][2] = fmaf(xv, gv.z, acc[k][2]);
@@ -247,13 +267,15 @@ wgrad_kernel(const float* __restrict__ feats, const int* __restrict__ src,
     }
   }
 
-  // one partial a block: the groups' sums added in group order
+  // one partial a block (its chunk of it): the groups' sums added in group
+  // order
   const int n_w = 27 * cin * cout;
+  const int n_wc = 27 * cin_c * cout_c;
   float* out = part + static_cast<long long>(blockIdx.x) * n_w;
   __syncthreads();
   float* red_s = reinterpret_cast<float*>(smem4);
   if (groups > 1) {
-    for (int e = tid; e < n_w; e += nthr) red_s[e] = 0.f;
+    for (int e = tid; e < n_wc; e += nthr) red_s[e] = 0.f;
     __syncthreads();
   }
   for (int q = 0; q < groups; ++q) {
@@ -263,26 +285,44 @@ wgrad_kernel(const float* __restrict__ feats, const int* __restrict__ src,
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) {
           const int j = j4 * 4 + jj;
-          if (j >= cout) continue;
-          const int e = ((3 * k + tz) * cin + ci) * cout + j;
-          if (groups == 1)
-            out[e] = acc[k][jj];
-          else
-            red_s[e] += acc[k][jj];
+          if (j >= cout_c) continue;
+          if (!W) {
+            const int e = ((3 * k + tz) * cin + ci) * cout + j;
+            if (groups == 1)
+              out[e] = acc[k][jj];
+            else
+              red_s[e] += acc[k][jj];
+          } else if (groups == 1) {
+            out[((3 * k + tz) * cin + i0 + ci) * cout + j0 + j] =
+                acc[k][jj];
+          } else {
+            red_s[((3 * k + tz) * cin_c + ci) * cout_c + j] += acc[k][jj];
+          }
         }
     }
     if (groups > 1) __syncthreads();
   }
-  if (groups > 1)
+  if (groups > 1 && !W)
     for (int e = tid; e < n_w; e += nthr) out[e] = red_s[e];
+  else if (groups > 1)
+    for (int e = tid; e < n_wc; e += nthr) {
+      const int j = e % cout_c;
+      const int ci_e = (e / cout_c) % cin_c;
+      const int t = e / (cout_c * cin_c);
+      out[(t * cin + i0 + ci_e) * cout + j0 + j] = red_s[e];
+    }
 }
 
-// launches wgrad_kernel; *grid gets the number of partials it writes
+// launches wgrad_kernel<W>; *grid gets the number of partials it writes
+template <bool W>
 cudaError_t launch(const float* feats, const int* src, const float* g,
                    float* part, int max_parts, int n_out, int nz, int cin,
                    int cout, int sms, cudaStream_t st, int* grid_out) {
   const int cout4 = (cout + 3) & ~3;
-  const int units = 3 * cin * (cout4 / 4);
+  // a block's units: those of its chunk of (Cin, Cout), at most 32 x 32
+  const int cin_c = cin < 32 ? cin : 32;
+  const int cout_c = cout < 32 ? cout : 32;
+  const int units = 3 * cin_c * (((cout_c + 3) & ~3) / 4);
   const int units_pad = (units + 31) & ~31;
   if (units_pad > kThreads) return cudaErrorInvalidValue;
   const int groups = kThreads / units_pad;
@@ -297,20 +337,23 @@ cudaError_t launch(const float* feats, const int* src, const float* g,
                              : (kSmemBudget / per_col > kMaxTv
                                     ? kMaxTv
                                     : kSmemBudget / per_col));
-  const int n_w = 27 * cin * cout;
+  const int n_wc = 27 * cin_c * cout_c;
   size_t smem = per_col * tv + sizeof(int);
-  if (groups > 1 && smem < n_w * sizeof(float)) smem = n_w * sizeof(float);
+  if (groups > 1 && smem < n_wc * sizeof(float))
+    smem = n_wc * sizeof(float);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      wgrad_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, wgrad_kernel,
-                                                      threads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, wgrad_kernel<W>, threads, smem);
   if (err != cudaSuccess) return err;
   const int n_chunks = (n_out + tv - 1) / tv;
-  int grid = (per_sm > 0 ? per_sm : 1) * sms;
+  const int pairs = W ? ((cin + 31) / 32) * ((cout + 31) / 32) : 1;
+  int grid = (per_sm > 0 ? per_sm : 1) * sms / pairs;
+  if (grid < 1) grid = 1;
   if (grid > max_parts) grid = max_parts;
   if (grid > n_chunks) grid = n_chunks;
   *grid_out = grid;
@@ -321,9 +364,8 @@ cudaError_t launch(const float* feats, const int* src, const float* g,
                     reinterpret_cast<uintptr_t>(feats) % 16 == 0;
   const int vec_g = cout % 4 == 0 && (nz * cout) % 4 == 0 &&
                     reinterpret_cast<uintptr_t>(g) % 16 == 0;
-  wgrad_kernel<<<grid, threads, smem, st>>>(feats, src, g, part, n_out, nz,
-                                            cin, cout, tv, groups, vec_f,
-                                            vec_g);
+  wgrad_kernel<W><<<dim3(grid, pairs), threads, smem, st>>>(
+      feats, src, g, part, n_out, nz, cin, cout, tv, groups, vec_f, vec_g);
   return cudaGetLastError();
 }
 
@@ -426,12 +468,14 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// grow: bytes of a staged cotangent row (G::kGRow, or the wide kernel's
+// whole row)
 template <int CP, int NP>
-__host__ __device__ constexpr size_t smem_bytes(int tv, int nz) {
+__host__ __device__ constexpr size_t smem_bytes(int tv, int nz, int grow) {
   using G = Geo<CP, NP>;
   const size_t items = static_cast<size_t>(tv) * nz;
   const size_t words = (items + 31) / 32;
-  return 2 * items * G::kGRow + kWarps * kStages * 16 * G::kAPitch +
+  return 2 * items * grow + kWarps * kStages * 16 * G::kAPitch +
          kZeroBytes + 16 + 4 * (items + 2 * words + kTaps * tv + 1);
 }
 
@@ -448,17 +492,31 @@ __host__ __device__ constexpr size_t smem_bytes(int tv, int nz) {
 //   base_s [words] listed items before word w
 //   src_s  [9][tv] the chunk's source row of each tap, -1 if not taken
 //   count_s        the number of listed items
-template <int CP, int NP>
+//
+// W (wide, Cin or Cout past 32; CP = NP = 32): the source rows have fpitch
+// channels and the cotangent rows gpitch (32, 64 or 128), and block (x, y)
+// computes the 32 x 32 chunk y of (Cin, Cout) of every tap: chunk
+// y % ceil(Cin / 32) of the source channels, y / ceil(Cin / 32) of the
+// output channels.  g_s holds whole cotangent rows; an item is listed
+// where the block's 32 channels of its row are not all zero.
+template <int CP, int NP, bool W>
 __global__ void __launch_bounds__(kThreads, 1)
 wgrad_mma(const __nv_bfloat16* __restrict__ feats,
           const int* __restrict__ src, const __nv_bfloat16* __restrict__ g,
           float* __restrict__ part, int n_out, int nz, int cin, int cout,
-          int tv) {
+          int tv, int fpitch, int gpitch) {
   using G = Geo<CP, NP>;
   extern __shared__ uint4 smem[];
   const int n_items = tv * nz;
   const int n_words = (n_items + 31) / 32;
-  const uint32_t g_bytes = static_cast<uint32_t>(n_items) * G::kGRow;
+  // bytes of a cotangent row, channels of a source row, and the block's
+  // first source and output channel
+  const int grow = W ? 2 * gpitch : G::kGRow;
+  const int fp = W ? fpitch : CP;
+  const int a_chunks = W ? (cin + 31) / 32 : 1;
+  const int i0 = W ? 32 * (blockIdx.y % a_chunks) : 0;
+  const int j0 = W ? 32 * (blockIdx.y / a_chunks) : 0;
+  const uint32_t g_bytes = static_cast<uint32_t>(n_items) * grow;
   unsigned char* g_s = reinterpret_cast<unsigned char*>(smem);
   unsigned char* a_s = g_s + 2 * static_cast<size_t>(g_bytes);
   unsigned char* zero_s = a_s + kWarps * kStages * 16 * G::kAPitch;
@@ -492,9 +550,9 @@ wgrad_mma(const __nv_bfloat16* __restrict__ feats,
     if (c >= n_chunks) return;
     const int nc = min(tv, n_out - c * tv);
     if (k == 0) {
-      const uint32_t bytes = static_cast<uint32_t>(nc) * nz * G::kGRow;
+      const uint32_t bytes = static_cast<uint32_t>(nc) * nz * grow;
       const char* from = reinterpret_cast<const char*>(
-          g + static_cast<size_t>(c) * tv * nz * NP);
+          g + static_cast<size_t>(c) * tv * nz * (W ? gpitch : NP));
       // the block's reads of this buffer (the chunk before last) come
       // before the copy engine's writes
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -556,7 +614,8 @@ wgrad_mma(const __nv_bfloat16* __restrict__ feats,
       const int it = 32 * w + lane;
       bool any = false;
       if (it < n_live) {
-        const uint4* r = reinterpret_cast<const uint4*>(gb + it * G::kGRow);
+        const uint4* r =
+            reinterpret_cast<const uint4*>(gb + it * grow + 2 * j0);
 #pragma unroll
         for (int q = 0; q < NP / 8; ++q) {
           const uint4 x = r[q];
@@ -614,7 +673,7 @@ wgrad_mma(const __nv_bfloat16* __restrict__ feats,
           const int z = (e & 0xffff) - 1 + piece / G::kRowPieces;
           if (s < 0 || z < 0 || z >= nz) continue;
           cp_async16(buf + il * G::kAPitch + piece * 16,
-                     feats + (static_cast<size_t>(s) * nz + z) * CP +
+                     feats + (static_cast<size_t>(s) * nz + z) * fp + i0 +
                          (piece % G::kRowPieces) * 8);
         }
       }
@@ -652,7 +711,7 @@ wgrad_mma(const __nv_bfloat16* __restrict__ feats,
       uint32_t brow = zero_u32;
       if (a0 + ib < n_act) {
         const int e = item_s[a0 + ib];
-        brow = gb_u32 + ((e >> 16) * nz + (e & 0xffff)) * G::kGRow;
+        brow = gb_u32 + ((e >> 16) * nz + (e & 0xffff)) * grow + 2 * j0;
       }
       uint32_t bf[G::kNT][2];
       if constexpr (G::kNT == 1) {
@@ -687,8 +746,8 @@ wgrad_mma(const __nv_bfloat16* __restrict__ feats,
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const int m = 16 * mt + (lane >> 2) + 8 * (r >> 1);
-        const int j = 8 * nt + 2 * (lane & 3) + (r & 1);
-        const int tz = m / CP, i = m % CP;
+        const int j = j0 + 8 * nt + 2 * (lane & 3) + (r & 1);
+        const int tz = m / CP, i = i0 + m % CP;
         if (m < G::kM && i < cin && j < cout)
           out[((3 * k + tz) * cin + i) * cout + j] = acc[mt][nt][r];
       }
@@ -696,37 +755,44 @@ wgrad_mma(const __nv_bfloat16* __restrict__ feats,
 
 // columns of a chunk: the most (<= kMaxTv) whose staging fits
 template <int CP, int NP>
-int chunk_columns(int nz) {
+int chunk_columns(int nz, int grow) {
   int tv = kMaxTv;
-  while (tv > 1 && smem_bytes<CP, NP>(tv, nz) > kMaxSmem) --tv;
+  while (tv > 1 && smem_bytes<CP, NP>(tv, nz, grow) > kMaxSmem) --tv;
   return tv;
 }
 
-template <int CP, int NP>
+// W: fpitch, gpitch the rows' channels (CP = NP = 32), one block row a
+// 32 x 32 chunk of (Cin, Cout)
+template <int CP, int NP, bool W = false>
 cudaError_t launch(const void* feats, const int* src, const void* g,
                    float* part, int max_parts, int n_out, int nz, int cin,
-                   int cout, int sms, cudaStream_t st, int* grid_out) {
-  const int tv = chunk_columns<CP, NP>(nz);
-  const size_t smem = smem_bytes<CP, NP>(tv, nz);
+                   int cout, int sms, cudaStream_t st, int* grid_out,
+                   int fpitch = CP, int gpitch = NP) {
+  const int grow = W ? 2 * gpitch : Geo<CP, NP>::kGRow;
+  const int tv = chunk_columns<CP, NP>(nz, grow);
+  const size_t smem = smem_bytes<CP, NP>(tv, nz, grow);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      wgrad_mma<CP, NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      wgrad_mma<CP, NP, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   int per_sm = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, wgrad_mma<CP, NP>, kThreads, smem);
+      &per_sm, wgrad_mma<CP, NP, W>, kThreads, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const int n_chunks = (n_out + tv - 1) / tv;
-  int grid = per_sm * sms;
+  const int pairs = W ? ((cin + 31) / 32) * ((cout + 31) / 32) : 1;
+  int grid = per_sm * sms / pairs;
+  if (grid < 1) grid = 1;
   if (grid > max_parts) grid = max_parts;
   if (grid > n_chunks) grid = n_chunks;
   *grid_out = grid;
   if (grid == 0) return cudaSuccess;
-  wgrad_mma<CP, NP><<<grid, kThreads, smem, st>>>(
+  wgrad_mma<CP, NP, W><<<dim3(grid, pairs), kThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(feats), src,
-      static_cast<const __nv_bfloat16*>(g), part, n_out, nz, cin, cout, tv);
+      static_cast<const __nv_bfloat16*>(g), part, n_out, nz, cin, cout, tv,
+      fpitch, gpitch);
   return cudaGetLastError();
 }
 
@@ -775,41 +841,48 @@ cudaError_t reduce(const float* part, void* out, int n_parts, int n_w,
 
 // feats (R, nz*cin) and g (n_out, nz*cout) fp32, src (9, n_out) int32 (-1:
 // tap not taken), scratch max_parts x 27*cin*cout fp32 partials, out
-// (27, cin, cout) fp32.  1 <= cin, cout <= 32, 1 <= nz <= 256.  Returns a
+// (27, cin, cout) fp32.  1 <= cin, cout <= 128, 1 <= nz <= 256.  Returns a
 // cudaError_t (0 = launched).
 extern "C" int sf_winfuse_wgrad_fp32(const void* feats, const int* src,
                                      const void* g, void* scratch,
                                      int max_parts, void* out, int n_out,
                                      int nz, int cin, int cout,
                                      void* stream) {
-  if (cin < 1 || cin > 32 || cout < 1 || cout > 32 || nz < 1 || nz > 256 ||
-      max_parts < 1 || n_out < 0)
+  if (cin < 1 || cin > 128 || cout < 1 || cout > 128 || nz < 1 ||
+      nz > 256 || max_parts < 1 || n_out < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   int sms = 0, grid = 0;
   cudaError_t err = sm_count(&sms);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* part = static_cast<float*>(scratch);
+  const auto launch = cin > 32 || cout > 32 ? fp32::launch<true>
+                                             : fp32::launch<false>;
   if (err == cudaSuccess)
-    err = fp32::launch(static_cast<const float*>(feats), src,
-                       static_cast<const float*>(g), part, max_parts, n_out,
-                       nz, cin, cout, sms, st, &grid);
+    err = launch(static_cast<const float*>(feats), src,
+                 static_cast<const float*>(g), part, max_parts, n_out, nz,
+                 cin, cout, sms, st, &grid);
   if (err == cudaSuccess) err = reduce(part, out, grid, 27 * cin * cout, st);
   return static_cast<int>(err);
 }
 
-// feats (R, nz*cp) bf16 rows at channel pitch cp (8, 16 or 32; channels
-// past cin zero) and g (n_out, nz*np) bf16 at pitch np (8, 16 or 32;
-// channels past cout zero), both 16-byte aligned; src (9, n_out) int32 as
-// above; scratch and out as above, out (27, cin, cout).  1 <= cin <= cp,
-// 1 <= cout <= np, 1 <= nz <= 256.
+// feats (R, nz*cp) bf16 rows at channel pitch cp (channels past cin zero)
+// and g (n_out, nz*np) bf16 at pitch np (channels past cout zero), both
+// 16-byte aligned; src (9, n_out) int32 as above; scratch and out as
+// above, out (27, cin, cout).  1 <= cin <= cp, 1 <= cout <= np,
+// 1 <= nz <= 256.  Narrow: cp and np 8, 16 or 32, cin and cout <= 32.
+// Wide (cin or cout past 32): cp and np 32, 64 or 128.
 extern "C" int sf_winfuse_wgrad_bf16(const void* feats, const int* src,
                                      const void* g, void* scratch,
                                      int max_parts, void* out, int n_out,
                                      int nz, int cp, int cin, int np,
                                      int cout, void* stream) {
-  if ((cp != 8 && cp != 16 && cp != 32) || (np != 8 && np != 16 && np != 32)
-      || cin < 1 || cin > cp || cout < 1 || cout > np || nz < 1 || nz > 256
-      || max_parts < 1 || n_out < 0)
+  const bool wide = cin > 32 || cout > 32;
+  auto pitch_ok = [wide](int p) {
+    return wide ? p == 32 || p == 64 || p == 128 : p == 8 || p == 16 ||
+                                                       p == 32;
+  };
+  if (!pitch_ok(cp) || !pitch_ok(np) || cin < 1 || cin > cp || cout < 1 ||
+      cout > np || nz < 1 || nz > 256 || max_parts < 1 || n_out < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (reinterpret_cast<uintptr_t>(feats) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(g) % 16 != 0)
@@ -818,7 +891,10 @@ extern "C" int sf_winfuse_wgrad_bf16(const void* feats, const int* src,
   cudaError_t err = sm_count(&sms);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* part = static_cast<float*>(scratch);
-  if (err == cudaSuccess) {
+  if (err == cudaSuccess && wide) {
+    err = tc::launch<32, 32, true>(feats, src, g, part, max_parts, n_out, nz,
+                                   cin, cout, sms, st, &grid, cp, np);
+  } else if (err == cudaSuccess) {
     if (cp == 8)
       err = tc::by_np<8>(np, feats, src, g, part, max_parts, n_out, nz, cin,
                          cout, sms, st, &grid);

@@ -1,33 +1,54 @@
-"""Sparse LiDAR backbone ("spconv8x") on the column engine.
+"""Sparse LiDAR backbone ("spconv8x"): every engine, z formulation and
+dense-tail stage of the JAX package.
 
-Port of streamingflow_tpu/models/lidar_encoder.py::LidarBEVEncoder with
-SPARSE_ENCODER.ENGINE='column' and DENSE_TAIL_FROM_STAGE=3, the reference's
-mmdet3d SparseEncoder (channels [[16,16,32],[32,32,64],[64,64,128],
-[128,128]], BN eps 1e-3):
+Port of streamingflow_tpu/models/lidar_encoder.py::LidarBEVEncoder, the
+reference's mmdet3d SparseEncoder (channels [[16,16,32],[32,32,64],
+[64,64,128],[128,128]], BN eps 1e-3):
 
   points -> voxelize (fp32 binning, mean in COMPUTE_DTYPE)
-         -> column set (ops/sparse_columns.py), conv_input
-         -> stages 1-2 on columns: submanifold convs (ops/winfuse.py, kernel
-            K3 on the card) and strided column convs down1, down2
-         -> dense tail from stage 3: F.conv3d over (N, C, X, Y, Z) grids,
-            the masked BN restoring the sparse active set
+         -> conv_input, stages 1-4 of submanifold convs (basic blocks)
+            joined by strided convs down1-3
          -> conv_out (1,1,3)/(1,1,2) -> (B, T, OUTPUT_CHANNELS * nz, X, Y)
             with channel c*nz + z (nz = 2 at the flagship).
 
-Z_FORMULATION 'winfuse' and 'sep' compute the same conv; 'winfuse' drops
-the taps the TPU kernel's window plan drops (ops/winfuse.py::fused_found).
-Submodule and parameter names are the flax paths; the conv weights keep the
-JAX (taps, Cin, Cout) layout (convert.py reads ``JAX_LAYOUT``).  The
-clouds of a batch go through each submanifold conv in one kernel launch.
+SPARSE_ENCODER.ENGINE picks how the sparse convs run:
 
-A forward is :meth:`LidarBEVEncoder.geometry` (voxelize, column sets, the
-column maps with the kept and the full found taps, the reversed maps, the
-strided convs' taps and output columns, the dense tail's occupancy: no
-gradient, computed once) and :meth:`LidarBEVEncoder.ladder` (the learned
-part).  In train mode the masked BNs take batch statistics, and
+- 'column' (ops/sparse_columns.py): (x, y)-sparse columns with a dense z
+  axis, z-fused (V, nz*C) features; the submanifold convs are K3
+  (ops/winfuse.py; the hand kernel on the card), the strided convs plain
+  column convs.  Stages from DENSE_TAIL_FROM_STAGE (1-4; 5 = conv_out only;
+  0 = none) leave the columns for dense (N, C, X, Y, Z) grids (F.conv3d, the
+  masked BN restoring the active set); conv_input always runs on columns.
+  Z_FORMULATION: 'sep', 'banded' and 'conv' are one function (the JAX
+  package's three matmul shapes of the same sums), 'winfuse' and 'win'
+  drop the taps their TPU window plans drop (ops/winfuse.py::fused_found,
+  window_found).
+- 'gather' (ops/sparse.py): site rows and per-stage site caps
+  (STAGE_CAPS), a gathered neighbourhood product per conv.
+- 'tiled' (ops/sparse_tiled.py): the gather engine's sums under the tiled
+  engine's capacity rule (occupied 8x8x8 tiles capped at TILE_CAPS).
+
+The JAX encoder treats any ENGINE other than 'column' and 'tiled' as
+'gather'; this port accepts the three documented names and raises
+ValueError for any other, as it does for an unknown Z_FORMULATION or a
+DENSE_TAIL_FROM_STAGE outside 0-5.
+
+Submodule and parameter names are the flax paths under every setting
+(``down{s}`` and ``conv_out`` hold ``kernel`` and ``MaskedBatchNorm_0``
+whatever they run on), so one state_dict loads into each; the conv weights
+keep the JAX (taps, Cin, Cout) layout (convert.py reads ``JAX_LAYOUT``).
+The clouds of a batch go through each conv together (one K3 launch).
+
+A forward is :meth:`LidarBEVEncoder.geometry` (voxelize, the maps, the
+strided convs' taps and output sites or columns, the capacity rules, the
+dense tail's occupancy: no gradient, computed once) and
+:meth:`LidarBEVEncoder.ladder` (the learned part).  In train mode the
+masked BNs take batch statistics.  On the column engine
 SPARSE_ENCODER.REMAT_LADDER recomputes each submanifold conv, basic block
 and down conv in the backward pass (``torch.utils.checkpoint``), with the
-geometry outside every checkpoint.
+geometry outside every checkpoint; the site engines have no per-block
+remat in the JAX package (MODEL.REMAT checkpoints their whole ladder,
+models/streamingflow.py).
 """
 from __future__ import annotations
 
@@ -40,12 +61,19 @@ from torch import nn
 
 from ..config import SparseEncoderConfig
 from ..layers.trainmode import BatchNorm, global_moments, remat
+from ..ops import sparse as S
 from ..ops import sparse_columns as SC
+from ..ops import sparse_tiled as ST
 from ..ops.voxelize import LARGE_ID, linearize, voxelize
-from ..ops.winfuse import fused_found, reverse_map, subm_conv_winfuse
+from ..ops.winfuse import (fused_found, reverse_map, subm_conv_winfuse,
+                           window_found)
 
-DENSE_TAIL_FROM_STAGE = 3
-FORMULATIONS = ('winfuse', 'sep')
+ENGINES = ('column', 'gather', 'tiled')
+FORMULATIONS = ('winfuse', 'win', 'sep', 'banded', 'conv')
+DENSE_TAIL_STAGES = tuple(range(6))
+# the strided convs: down1-3 (3x3x3, stride 2), then conv_out
+STAGE_PADDINGS = ((1, 1, 1), (1, 1, 1), (1, 1, 0))
+CONV_OUT = ((1, 1, 3), (1, 1, 2), (0, 0, 0))
 # flax's BatchNorm momentum: running = 0.99 * running + 0.01 * batch
 FLAX_MOMENTUM = 0.99
 # elements a chunk of the batch statistics widens to fp32 at once
@@ -111,10 +139,12 @@ class _MaskedMoments(torch.autograd.Function):
 
 
 class MaskedBatchNorm(BatchNorm):
-    """BatchNorm over the active sites, in two layouts: fused columns x
-    (..., V, nz*C) with mask (..., V, nz), and dense grids x (N, C, X, Y, Z)
-    with mask (N, X, Y, Z).  Normalises in the input's type and zeroes the
-    inactive sites.
+    """BatchNorm over the active sites, in three layouts: fused columns x
+    (..., V, nz*C) with mask (..., V, nz); site rows x (..., V, C) with mask
+    (..., V), told apart by the mask's rank as the JAX package's ``_cin_of``
+    does (a site row is a fused column of one z); and dense grids x (N, C,
+    X, Y, Z) with mask (N, X, Y, Z).  Normalises in the input's type and
+    zeroes the inactive sites.
 
     Train mode, as the JAX package's MaskedBatchNorm: fp32 statistics over
     the active sites (:class:`_MaskedMoments`), n = max(count, 1), the
@@ -130,6 +160,8 @@ class MaskedBatchNorm(BatchNorm):
 
     def forward(self, x, mask):
         c = self.num_features
+        if mask.dim() == x.dim() - 1 and x.dim() < 5:
+            mask = mask[..., None]                # site rows
         if self.training:
             s1, s2 = _MaskedMoments.apply(x, mask, c)
             n = mask.sum().to(s1.dtype)
@@ -171,16 +203,25 @@ def _tap_weights(taps: int, cin: int, cout: int) -> nn.Parameter:
 class ColumnGeo(NamedTuple):
     """One stage's neighbour map over the stacked clouds: nbr (9, N*V)
     int32 rows of the (N*V, nz*C) features, found (9, N*V) bool the taps
-    the forward takes ('winfuse': the window plan's kept taps), the taps
-    'winfuse' dropped in each cloud (N,) int32; for the backward, which
-    takes every found tap as the JAX package's ``_winfuse_bwd`` does,
-    grad_found (9, N*V) the map's full found and src_t (9, N*V) its
-    reversal (ops/winfuse.py::reverse_map)."""
+    the forward takes ('winfuse' and 'win': their window plans' kept taps),
+    the taps those plans dropped in each cloud (N,) int32; for the
+    backward, grad_found (9, N*V) the taps it takes and src_t (9, N*V)
+    their reversal (ops/winfuse.py::reverse_map): under 'winfuse' the map's
+    full found, as the JAX package's ``_winfuse_bwd`` takes every found
+    tap; under the other formulations, whose JAX gradient is autodiff of
+    their forward ('win': dropped taps get none), ``found``."""
     nbr: torch.Tensor
     found: torch.Tensor
     n_dropped: Optional[torch.Tensor]
     grad_found: Optional[torch.Tensor] = None
     src_t: Optional[torch.Tensor] = None
+
+
+class SiteGeo(NamedTuple):
+    """A conv over the site rows of stacked clouds: src (K, N*V_out) long,
+    the input row (of the N*V_in stacked rows) under each tap of every
+    output row, N*V_in (a zero row) where the tap finds no site."""
+    src: torch.Tensor
 
 
 class DenseGrid:
@@ -198,14 +239,34 @@ def _conv3d(x, w, kernel, stride=(1, 1, 1), padding=(1, 1, 1)):
 
 def subm(feats, mask, geo, w):
     """Submanifold 3x3x3 conv: fused columns (N, V, nz*Cin) over a
-    ColumnGeo, or a dense grid (N, Cin, X, Y, Z) under DENSE."""
+    ColumnGeo, site rows (N, V, Cin) over a SiteGeo, or a dense grid (N,
+    Cin, X, Y, Z) under DENSE.  Inactive outputs are not zeroed: the masked
+    BN after every conv zeroes them."""
     if isinstance(geo, DenseGrid):
         return _conv3d(feats, w, (3, 3, 3))
-    n, v, _ = feats.shape
+    n, v, c = feats.shape
+    if isinstance(geo, SiteGeo):
+        return S.gather_product(feats.reshape(n * v, c), geo.src,
+                                w).reshape(n, v, -1)
     out = subm_conv_winfuse(feats.reshape(n * v, -1), geo.nbr, geo.found, w,
                             mask.shape[-1], grad_found=geo.grad_found,
                             src_t=geo.src_t)
     return out.reshape(n, v, -1)
+
+
+def _voxel_sets(points, point_mask, cfg: SparseEncoderConfig, out_dtype):
+    """Clouds (N, P, C) -> each cloud's voxel set and its ids re-linearised
+    into SPARSE_SHAPE (the voxel grid's z, 40 at the flagship, in
+    SPARSE_SHAPE's 41; the order of the ids is kept)."""
+    shape = tuple(cfg.SPARSE_SHAPE)
+    out = []
+    for pts, pmask in zip(points, point_mask):
+        vox = voxelize(pts, pmask, cfg.POINT_CLOUD_RANGE, cfg.VOXEL_SIZE,
+                       cfg.MAX_NUM_POINTS, cfg.MAX_VOXELS, out_dtype=out_dtype)
+        out.append((vox, torch.where(vox.mask,
+                                     linearize(vox.coords.long(), shape),
+                                     LARGE_ID)))
+    return out
 
 
 def _entry(points, point_mask, cfg: SparseEncoderConfig, out_dtype
@@ -215,13 +276,7 @@ def _entry(points, point_mask, cfg: SparseEncoderConfig, out_dtype
     shape = tuple(cfg.SPARSE_SHAPE)
     cap0 = min(cfg.COLUMN_CAPS[0], shape[0] * shape[1])
     sets, n_sites = [], 0
-    for pts, pmask in zip(points, point_mask):
-        vox = voxelize(pts, pmask, cfg.POINT_CLOUD_RANGE, cfg.VOXEL_SIZE,
-                       cfg.MAX_NUM_POINTS, cfg.MAX_VOXELS, out_dtype=out_dtype)
-        # the voxel grid's z (40 at the flagship) re-linearised into
-        # SPARSE_SHAPE's (41): the order of the ids is kept
-        ids = torch.where(vox.mask, linearize(vox.coords.long(), shape),
-                          LARGE_ID)
+    for vox, ids in _voxel_sets(points, point_mask, cfg, out_dtype):
         sets.append(SC.from_sites(vox.feats, ids, vox.mask, shape, cap0))
         n_sites = n_sites + vox.mask.sum()
     return SC.stack_sets(sets), n_sites
@@ -236,26 +291,33 @@ def column_sets(points, point_mask, cfg: SparseEncoderConfig,
 def column_geometry(cs: SC.ColumnSet, grid, cfg: SparseEncoderConfig
                     ) -> ColumnGeo:
     """The neighbour map of stacked column sets, with the taps the
-    'winfuse' plan keeps, and the full found and the reversed map that the
-    gradient takes."""
+    'winfuse' or 'win' plan keeps (every found tap under the other
+    formulations), and the taps and the reversed map that the gradient
+    takes (:class:`ColumnGeo`)."""
     n, cap = cs.col_ids.shape
+    form = cfg.Z_FORMULATION
     nbrs, founds, fulls, drops = [], [], [], []
     for i in range(n):
         cmap = SC.build_column_map(SC.cloud(cs, i), grid)
         found = cmap.found
         dropped = torch.zeros((), dtype=torch.int32, device=found.device)
-        if cfg.Z_FORMULATION == 'winfuse':
+        if form == 'winfuse':
             found, dropped = fused_found(cmap, cfg.WINDOW_BLOCK,
                                          cfg.WINFUSE_WINDOW,
                                          cfg.WINDOW_RESID_BLOCKS)
+        elif form == 'win':
+            found, dropped = window_found(cmap, cfg.WINDOW_BLOCK,
+                                          cfg.WINDOW_WIDTH,
+                                          cfg.WINDOW_RESID_BLOCKS)
         nbrs.append(cmap.nbr + i * cap)
         founds.append(found)
         fulls.append(cmap.found)
         drops.append(dropped)
     nbr = torch.cat(nbrs, 1).int()
-    full = torch.cat(fulls, 1)
-    return ColumnGeo(nbr, torch.cat(founds, 1), torch.stack(drops), full,
-                     reverse_map(nbr, full, n * cap))
+    found = torch.cat(founds, 1)
+    grad = torch.cat(fulls, 1) if form == 'winfuse' else found
+    return ColumnGeo(nbr, found, torch.stack(drops), grad,
+                     reverse_map(nbr, grad, n * cap))
 
 
 def stacked_strided_geometry(cs: SC.ColumnSet, kernel, stride, padding,
@@ -273,19 +335,63 @@ def stacked_strided_geometry(cs: SC.ColumnSet, kernel, stride, padding,
     return SC.StridedGeo(src, out, geos[0].shape)
 
 
+class DenseEntry(NamedTuple):
+    """The dense tail's entry: idx the flat cell of each column slot of the
+    last column stage (:func:`ops.sparse_columns.dense_cells`), zmask and
+    shape of that stage, and the (N, X, Y, Z) occupancy of each dense
+    stage, then of conv_out's output."""
+    idx: torch.Tensor
+    zmask: torch.Tensor
+    shape: Tuple[int, int, int]
+    masks: List[torch.Tensor]
+
+
 class LadderGeo(NamedTuple):
-    """What a forward's ladder runs over, none of it taking a gradient:
-    feats (N, V1, nz1*Cin) the voxel features in stage-1 columns; per
-    column stage s (1, 2) its zmask (N, V, nz) and ColumnGeo, and the
-    strided conv's geometry to stage s + 1; the dense entry's cells and the
-    occupancy of each dense stage, then of conv_out's output; the (B, T)
-    of the clouds and the branch's type."""
+    """What a column-engine forward's ladder runs over, none of it taking a
+    gradient: feats (N, V1, nz1*Cin) the voxel features in stage-1 columns;
+    per column stage its zmask (N, V, nz) and ColumnGeo (stage 1's always:
+    conv_input runs on columns), and each column strided conv's geometry;
+    conv_out's when it runs on columns (DENSE_TAIL_FROM_STAGE 0), else the
+    dense tail's entry; the (B, T) of the clouds and the branch's type."""
     feats: torch.Tensor
     zmasks: List[torch.Tensor]
     columns: List[ColumnGeo]
     strided: List[SC.StridedGeo]
-    dense_idx: torch.Tensor
-    dense_masks: List[torch.Tensor]
+    conv_out: Optional[SC.StridedGeo]
+    dense: Optional[DenseEntry]
+    batch: Tuple[int, int]
+    out_dtype: torch.dtype
+
+
+class SiteStage(NamedTuple):
+    """A stage of the site engines: its submanifold convs' SiteGeo and kept
+    (N, V) bool, the sites they run over and their BNs take statistics
+    over ('gather': every active site; 'tiled': those whose tile is under
+    the stage's TILE_CAPS)."""
+    subm: SiteGeo
+    kept: torch.Tensor
+
+
+class SiteDown(NamedTuple):
+    """A strided conv of the site engines: its SiteGeo into the stage's
+    sites, its output sites' mask (N, V_out), and for 'tiled' src_kept
+    (N, V_out), the output site's least contributing input site is kept
+    (None for 'gather')."""
+    conv: SiteGeo
+    mask: torch.Tensor
+    src_kept: Optional[torch.Tensor]
+
+
+class SiteLadderGeo(NamedTuple):
+    """What a site-engine forward's ladder runs over: feats (N, V0, Cin)
+    the voxel features; the four stages and the four strided convs (down1-3,
+    conv_out); conv_out's output coords (N, V, 3) and grid; the (B, T) of
+    the clouds and the branch's type."""
+    feats: torch.Tensor
+    stages: List[SiteStage]
+    downs: List[SiteDown]
+    out_coords: torch.Tensor
+    out_shape: Tuple[int, int, int]
     batch: Tuple[int, int]
     out_dtype: torch.dtype
 
@@ -345,6 +451,31 @@ class ColumnSparseConvBNReLU(nn.Module):
         return F.relu(self.MaskedBatchNorm_0(out, geo.out.zmask))
 
 
+class SparseConvBNReLU(nn.Module):
+    """Strided sparse conv + BN + ReLU over the site rows of stacked clouds
+    (the 'gather' and 'tiled' engines): the gathered taps' product into the
+    output sites, under 'tiled' zero where the output site's least
+    contributing input site lies in a dropped tile; every output site
+    counts in the BN."""
+    JAX_LAYOUT = True
+
+    def __init__(self, cin, cout, kernel, stride, padding, cap):
+        super().__init__()
+        self.conv = (tuple(kernel), tuple(stride), tuple(padding))
+        self.cap = cap
+        self.kernel = _tap_weights(math.prod(kernel), cin, cout)
+        self.MaskedBatchNorm_0 = MaskedBatchNorm(cout)
+
+    def forward(self, feats, down: SiteDown):
+        n, v_in, c = feats.shape
+        out = S.gather_product(feats.reshape(n * v_in, c), down.conv.src,
+                               self.kernel).reshape(n, -1,
+                                                    self.kernel.shape[2])
+        if down.src_kept is not None:
+            out = torch.where(down.src_kept[..., None], out, 0)
+        return F.relu(self.MaskedBatchNorm_0(out, down.mask))
+
+
 class DenseConvBNReLU(nn.Module):
     """Strided conv + BN + ReLU over dense (N, C, X, Y, Z) grids; the output
     occupancy is the SparseConv3d rule (any active input in the window),
@@ -368,65 +499,82 @@ class DenseConvBNReLU(nn.Module):
 class LidarBEVEncoder(nn.Module):
     """points (B, T, P, C) -> BEV features (B, T, out_channels, X, Y).
 
-    After each forward, ``last_n_dropped`` holds the taps 'winfuse' dropped
-    per stage ({'stage1': (N,), 'stage2': (N,)} device tensors) and
-    ``last_diagnostics`` the JAX package's sown 'diagnostics' (int32 device
-    scalars, nothing read to the host): ``lidar_dropped_sites_entry`` (voxel
-    sites less those the entry's column cap kept), ``lidar_columns_stage1``
-    .. ``3`` (the most active columns of a cloud at each column stage) and
-    ``lidar_column_cap_hit_stage2`` / ``3`` (1 when a cloud filled the
-    strided conv's column cap: columns were dropped).
+    After each forward on the column engine ``last_n_dropped`` holds the
+    taps 'winfuse' or 'win' dropped per column stage ({'stage1': (N,),
+    ...} device tensors) and ``last_diagnostics`` the JAX package's sown
+    'diagnostics' (int32 device scalars, nothing read to the host):
+    ``lidar_dropped_sites_entry`` (voxel sites less those the entry's
+    column cap kept), ``lidar_columns_stage1`` and, for each column strided
+    conv down{s}, ``lidar_columns_stage{s+1}`` (the most active columns of
+    a cloud) and ``lidar_column_cap_hit_stage{s+1}`` (1 when a cloud filled
+    its column cap: columns were dropped).  The site engines sow nothing
+    in the JAX package; there ``last_capacity`` holds, per stage, the most
+    active sites of a cloud (``sites_stage{s}``), whether a strided conv
+    filled its STAGE_CAPS (``site_cap_hit_stage{s}``) and, under 'tiled',
+    the sites past the tile caps (``tile_dropped_sites_stage{s}``).
 
-    SPARSE_ENCODER.REMAT_LADDER (train mode, gradients on) checkpoints each
-    submanifold conv, basic block and down conv on its own.  The JAX
-    package nests that per-block remat inside MODEL.REMAT's remat of the
-    whole encoder; remat never changes the function, so the port's
-    per-block checkpoints alone give the same values and gradients
-    (models/streamingflow.py checkpoints the whole ladder only when
-    REMAT_LADDER is off)."""
+    On the column engine SPARSE_ENCODER.REMAT_LADDER (train mode, gradients
+    on) checkpoints each submanifold conv, basic block and down conv on its
+    own.  The JAX package nests that per-block remat inside MODEL.REMAT's
+    remat of the whole encoder; remat never changes the function, so the
+    port's per-block checkpoints alone give the same values and gradients
+    (models/streamingflow.py checkpoints the whole ladder when
+    ``remat_ladder`` is off)."""
 
     def __init__(self, cfg: SparseEncoderConfig):
         super().__init__()
-        if cfg.ENGINE != 'column' or cfg.Z_FORMULATION not in FORMULATIONS:
-            raise NotImplementedError(
-                f'SPARSE_ENCODER.ENGINE={cfg.ENGINE!r} / Z_FORMULATION='
-                f'{cfg.Z_FORMULATION!r} is not ported yet (ROADMAP.md, Queue '
-                f"1 items 14d and 16); the port runs ENGINE='column' with "
-                f"Z_FORMULATION in {FORMULATIONS}")
-        if cfg.DENSE_TAIL_FROM_STAGE != DENSE_TAIL_FROM_STAGE:
-            raise NotImplementedError(
-                f'SPARSE_ENCODER.DENSE_TAIL_FROM_STAGE='
-                f'{cfg.DENSE_TAIL_FROM_STAGE} is not ported yet (ROADMAP.md, '
-                f'Queue 1 item 14b); the port runs {DENSE_TAIL_FROM_STAGE}')
+        for key, allowed in (('ENGINE', ENGINES),
+                             ('Z_FORMULATION', FORMULATIONS),
+                             ('DENSE_TAIL_FROM_STAGE', DENSE_TAIL_STAGES)):
+            if getattr(cfg, key) not in allowed:
+                raise ValueError(f'SPARSE_ENCODER.{key}={getattr(cfg, key)!r}'
+                                 f' is not one of {allowed}')
         self.cfg = cfg
+        self.column = cfg.ENGINE == 'column'
+        n_stages = len(cfg.ENCODER_CHANNELS)
+        tail = cfg.DENSE_TAIL_FROM_STAGE
+        # stages whose blocks run on columns (conv_input always does)
+        self.n_column = (0 if not self.column else n_stages if tail == 0
+                         else min(tail - 1, n_stages))
         self.last_n_dropped: Dict[str, torch.Tensor] = {}
         self.last_diagnostics: Dict[str, torch.Tensor] = {}
+        self.last_capacity: Dict[str, torch.Tensor] = {}
         self.conv_input = SubMConvBNReLU(cfg.IN_CHANNELS, cfg.BASE_CHANNELS)
-        self.paddings = [(1, 1, 1), (1, 1, 1), (1, 1, 0)]
-        n_stages = len(cfg.ENCODER_CHANNELS)
         prev = cfg.BASE_CHANNELS
         for i, blocks in enumerate(cfg.ENCODER_CHANNELS):
             for j, ch in enumerate(blocks):
                 if j == len(blocks) - 1 and i != n_stages - 1:
-                    args = (prev, ch, (3, 3, 3), (2, 2, 2), self.paddings[i])
-                    down = (DenseConvBNReLU(*args)
-                            if i + 1 >= DENSE_TAIL_FROM_STAGE else
-                            ColumnSparseConvBNReLU(*args,
-                                                   cfg.COLUMN_CAPS[i + 1]))
-                    self.add_module(f'down{i + 1}', down)
+                    self.add_module(f'down{i + 1}', self._strided(
+                        prev, ch, ((3, 3, 3), (2, 2, 2), STAGE_PADDINGS[i]),
+                        i + 1, i + 1 <= self.n_column))
                 else:
                     self.add_module(f'stage{i + 1}_block{j}',
                                     SparseBasicBlock(ch))
                 prev = ch
-        self.conv_out = DenseConvBNReLU(prev, cfg.OUTPUT_CHANNELS, (1, 1, 3),
-                                        (1, 1, 2), (0, 0, 0))
+        self.conv_out = self._strided(prev, cfg.OUTPUT_CHANNELS, CONV_OUT,
+                                      -1, self.column and tail == 0)
         # BEV channels: OUTPUT_CHANNELS times the z left after the ladder
         # (41 -> 21 -> 11 -> 5 -> 2 at the flagship)
         shape = tuple(cfg.SPARSE_SHAPE)
-        for p in self.paddings:
+        for p in STAGE_PADDINGS:
             shape = SC.conv_out_shape(shape, (3, 3, 3), (2, 2, 2), p)
-        nz = SC.conv_out_shape(shape, (1, 1, 3), (1, 1, 2), (0, 0, 0))[2]
+        nz = SC.conv_out_shape(shape, *CONV_OUT)[2]
         self.out_channels = cfg.OUTPUT_CHANNELS * nz
+
+    def _strided(self, cin, cout, conv, stage, on_columns):
+        """down{stage} (conv_out for stage -1) on the engine's layout."""
+        cfg = self.cfg
+        if not self.column:
+            return SparseConvBNReLU(cin, cout, *conv, cfg.STAGE_CAPS[stage])
+        if on_columns:
+            return ColumnSparseConvBNReLU(cin, cout, *conv,
+                                          cfg.COLUMN_CAPS[stage])
+        return DenseConvBNReLU(cin, cout, *conv)
+
+    @property
+    def remat_ladder(self) -> bool:
+        """Whether the encoder checkpoints each block itself."""
+        return self.column and self.cfg.REMAT_LADDER
 
     def _blocks(self, s: int) -> List[nn.Module]:
         n_stages = len(self.cfg.ENCODER_CHANNELS)
@@ -434,9 +582,15 @@ class LidarBEVEncoder(nn.Module):
         return [getattr(self, f'stage{s}_block{j}')
                 for j in range(len(self.cfg.ENCODER_CHANNELS[s - 1]) - down)]
 
-    def geometry(self, points) -> LadderGeo:
+    def _strided_convs(self) -> List[nn.Module]:
+        """down1 .. down{n-1}, then conv_out."""
+        n_stages = len(self.cfg.ENCODER_CHANNELS)
+        return [getattr(self, f'down{s}') for s in range(1, n_stages)] + \
+            [self.conv_out]
+
+    def geometry(self, points):
         """Everything of a forward that takes no gradient; sets
-        ``last_n_dropped`` and ``last_diagnostics``."""
+        ``last_n_dropped``, ``last_diagnostics`` and ``last_capacity``."""
         cfg = self.cfg
         B, T, P, C = points.shape
         flat = points.reshape(B * T, P, C)
@@ -444,6 +598,15 @@ class LidarBEVEncoder(nn.Module):
         pmask = (flat[..., :3] != 0).any(-1)
         out_dtype = (getattr(torch, cfg.COMPUTE_DTYPE)
                      if cfg.COMPUTE_DTYPE != 'auto' else points.dtype)
+        self.last_n_dropped, self.last_diagnostics = {}, {}
+        self.last_capacity = {}
+        if self.column:
+            return self._column_geometry(flat, pmask, out_dtype, (B, T))
+        return self._site_geometry(flat, pmask, out_dtype, (B, T))
+
+    def _column_geometry(self, flat, pmask, out_dtype, batch) -> LadderGeo:
+        cfg = self.cfg
+        n_stages = len(cfg.ENCODER_CHANNELS)
         shape = tuple(cfg.SPARSE_SHAPE)
         cs, n_sites = _entry(flat, pmask, cfg, out_dtype)
         i32 = torch.int32
@@ -452,12 +615,13 @@ class LidarBEVEncoder(nn.Module):
                 'lidar_columns_stage1': cs.col_mask.sum(-1).max().to(i32)}
         feats = cs.feats
         zmasks, columns, strided = [], [], []
-        self.last_n_dropped = {}
-        for s in range(1, DENSE_TAIL_FROM_STAGE):
+        for s in range(1, max(self.n_column, 1) + 1):
             geo = column_geometry(cs, shape[:2], cfg)
             self.last_n_dropped[f'stage{s}'] = geo.n_dropped
             zmasks.append(cs.zmask)
             columns.append(geo)
+            if s > self.n_column or s == n_stages:
+                continue
             down = getattr(self, f'down{s}')
             sgeo = stacked_strided_geometry(cs, *down.conv, shape,
                                             down.out_cap(shape))
@@ -467,57 +631,149 @@ class LidarBEVEncoder(nn.Module):
             diag[f'lidar_columns_stage{s + 1}'] = per_cloud.max().to(i32)
             diag[f'lidar_column_cap_hit_stage{s + 1}'] = (
                 per_cloud == cs.col_mask.shape[-1]).any().to(i32)
-        # dense tail: (N, X, Y, Z) occupancy of each stage, then conv_out's
-        idx, mask = SC.dense_cells(cs.col_ids, cs.col_mask, cs.zmask, shape)
-        masks = [mask]
-        for s in range(DENSE_TAIL_FROM_STAGE, len(cfg.ENCODER_CHANNELS)):
-            masks.append(getattr(self, f'down{s}').out_mask(masks[-1]))
-        masks.append(self.conv_out.out_mask(masks[-1]))
         self.last_diagnostics = diag
-        return LadderGeo(feats, zmasks, columns, strided, idx, masks,
-                         (B, T), out_dtype)
+        conv_out = dense = None
+        if isinstance(self.conv_out, ColumnSparseConvBNReLU):
+            conv_out = stacked_strided_geometry(
+                cs, *self.conv_out.conv, shape, self.conv_out.out_cap(shape))
+        else:
+            # dense tail: (N, X, Y, Z) occupancy of each stage, then
+            # conv_out's
+            idx, mask = SC.dense_cells(cs.col_ids, cs.col_mask, cs.zmask,
+                                       shape)
+            masks = [mask]
+            for s in range(self.n_column + 1, n_stages):
+                masks.append(getattr(self, f'down{s}').out_mask(masks[-1]))
+            masks.append(self.conv_out.out_mask(masks[-1]))
+            dense = DenseEntry(idx, cs.zmask, shape, masks)
+        return LadderGeo(feats, zmasks, columns, strided, conv_out, dense,
+                         batch, out_dtype)
+
+    def _site_geometry(self, flat, pmask, out_dtype, batch
+                       ) -> SiteLadderGeo:
+        cfg = self.cfg
+        tiled = cfg.ENGINE == 'tiled'
+        tile = tuple(cfg.TILE_SHAPE)
+        shape = tuple(cfg.SPARSE_SHAPE)
+        vox = _voxel_sets(flat, pmask, cfg, out_dtype)
+        feats = torch.stack([v.feats for v, _ in vox])
+        sts = [S.SparseTensor(None, v.coords, ids, v.mask, shape)
+               for v, ids in vox]
+        cap = self.last_capacity
+        stages, downs = [], []
+        for i, conv in enumerate(self._strided_convs()):
+            v_in = sts[0].ids.shape[0]
+            masks = torch.stack([st.mask for st in sts])
+            kept = masks
+            if tiled:
+                t_cap = ST.stage_tile_cap(cfg.TILE_CAPS[i], shape, tile)
+                kept = torch.stack([ST.build_tile_map(
+                    st.coords, st.ids, st.mask, shape, t_cap, tile).kept
+                    for st in sts])
+                cap[f'tile_dropped_sites_stage{i + 1}'] = \
+                    (masks & ~kept).sum()
+            cap[f'sites_stage{i + 1}'] = masks.sum(-1).max()
+            stages.append(SiteStage(SiteGeo(S.stacked_src(
+                [S.build_neighbor_map(st) for st in sts], v_in)), kept))
+            out_shape = S.conv_out_shape(shape, *conv.conv)
+            sites = [S.generate_output_sites(st, *conv.conv, out_shape,
+                                             conv.cap, return_nmap=True,
+                                             return_src=tiled)
+                     for st in sts]
+            out_mask = torch.stack([o.mask for o in sites])
+            src_kept = (torch.stack([kept[j][o.src] for j, o in
+                                     enumerate(sites)]) & out_mask
+                        if tiled else None)
+            if i + 1 < len(cfg.ENCODER_CHANNELS):
+                cap[f'site_cap_hit_stage{i + 2}'] = \
+                    (out_mask.sum(-1) == conv.cap).any()
+            downs.append(SiteDown(SiteGeo(S.stacked_src(
+                [o.nmap for o in sites], v_in)), out_mask, src_kept))
+            sts = [S.SparseTensor(None, o.coords, o.ids, o.mask, out_shape)
+                   for o in sites]
+            shape = out_shape
+        coords = torch.stack([st.coords for st in sts])
+        return SiteLadderGeo(feats, stages, downs, coords, shape, batch,
+                             out_dtype)
 
     def _run(self, module, *args):
         """``module(*args)``, checkpointed under REMAT_LADDER when a
         backward pass will follow (its BN statistics frozen in the
         recompute)."""
-        if self.cfg.REMAT_LADDER and self.training and \
-                torch.is_grad_enabled():
+        if self.remat_ladder and self.training and torch.is_grad_enabled():
             return remat(module, module, None, *args)
         return module(*args)
 
-    def ladder(self, feats, geo: LadderGeo):
-        """The learned part: stage-1 column features (N, V1, nz1*Cin) over
-        ``geo`` -> (B, T, OUTPUT_CHANNELS * nz, X, Y) in the branch's
-        type."""
+    def ladder(self, feats, geo):
+        """The learned part: the entry's features (stage-1 columns (N, V1,
+        nz1*Cin), or voxel site rows (N, V0, Cin)) over ``geo`` -> (B, T,
+        OUTPUT_CHANNELS * nz, X, Y) in the branch's type."""
+        if self.column:
+            return self._column_ladder(feats, geo)
+        return self._site_ladder(feats, geo)
+
+    def _column_ladder(self, feats, geo: LadderGeo):
         cfg = self.cfg
+        n_stages = len(cfg.ENCODER_CHANNELS)
         h = feats
-        for s in range(1, DENSE_TAIL_FROM_STAGE):
-            zmask, cgeo = geo.zmasks[s - 1], geo.columns[s - 1]
+        for s, (zmask, cgeo) in enumerate(zip(geo.zmasks, geo.columns), 1):
             if s == 1:
                 h = self._run(self.conv_input, h, zmask, cgeo)
+            if s > self.n_column:
+                break
             for block in self._blocks(s):
                 h = self._run(block, h, zmask, cgeo)
-            h = self._run(getattr(self, f'down{s}'), h, zmask.shape[-1],
-                          geo.strided[s - 1])
+            if s < n_stages:
+                h = self._run(getattr(self, f'down{s}'), h, zmask.shape[-1],
+                              geo.strided[s - 1])
+        if geo.conv_out is not None:
+            o = geo.conv_out
+            h = self._run(self.conv_out, h, geo.zmasks[-1].shape[-1], o)
+            nx, ny, nz = o.shape
+            bev = SC.to_dense_bev(o.out._replace(feats=h), (nx, ny), nz,
+                                  cfg.OUTPUT_CHANNELS)
+            return bev.permute(0, 3, 1, 2).reshape(
+                *geo.batch, -1, nx, ny).to(geo.out_dtype)
 
         # dense tail: (N, C, X, Y, Z) grids and (N, X, Y, Z) occupancy
-        last = geo.strided[-1]
-        c = cfg.ENCODER_CHANNELS[DENSE_TAIL_FROM_STAGE - 2][-1]
-        x = SC.dense_features(h, last.out.zmask, geo.dense_idx, last.shape,
-                              c).permute(0, 4, 1, 2, 3)
-        n_stages = len(cfg.ENCODER_CHANNELS)
-        for s in range(DENSE_TAIL_FROM_STAGE, n_stages + 1):
-            mask = geo.dense_masks[s - DENSE_TAIL_FROM_STAGE]
+        d = geo.dense
+        c = h.shape[-1] // d.zmask.shape[-1]
+        x = SC.dense_features(h, d.zmask, d.idx, d.shape, c).permute(
+            0, 4, 1, 2, 3)
+        first = self.n_column + 1
+        for s in range(first, n_stages + 1):
+            mask = d.masks[s - first]
             for block in self._blocks(s):
                 x = self._run(block, x, mask, DENSE)
             if s < n_stages:             # the last stage has no down conv
                 x = self._run(getattr(self, f'down{s}'), x,
-                              geo.dense_masks[s - DENSE_TAIL_FROM_STAGE + 1])
-        x = self._run(self.conv_out, x, geo.dense_masks[-1])
+                              d.masks[s - first + 1])
+        x = self._run(self.conv_out, x, d.masks[-1])
         _, ch, nx, ny, nz = x.shape
         # channel c*nz + z, as the reference's dense view
         x = x.permute(0, 1, 4, 2, 3).reshape(*geo.batch, ch * nz, nx, ny)
+        return x.to(geo.out_dtype)
+
+    def _site_ladder(self, feats, geo: SiteLadderGeo):
+        tiled = self.cfg.ENGINE == 'tiled'
+        h = feats
+        for s, (stage, down, conv) in enumerate(
+                zip(geo.stages, geo.downs, self._strided_convs()), 1):
+            if tiled:
+                # a stage holds only its kept tiles' sites
+                h = torch.where(stage.kept[..., None], h, 0)
+            if s == 1:
+                h = self.conv_input(h, stage.kept, stage.subm)
+            for block in self._blocks(s):
+                h = block(h, stage.kept, stage.subm)
+            h = conv(h, down)
+        # densify: (N, nx, ny, nz, C) -> channel c*nz + z (the reference's
+        # dense view, sparse_encoder.py:126-133)
+        nx, ny, nz = geo.out_shape
+        dense = torch.stack([S.to_dense(S.SparseTensor(
+            f, c, None, m, geo.out_shape)) for f, c, m in
+            zip(h, geo.out_coords, geo.downs[-1].mask)])
+        x = dense.permute(0, 4, 3, 1, 2).reshape(*geo.batch, -1, nx, ny)
         return x.to(geo.out_dtype)
 
     def forward(self, points):

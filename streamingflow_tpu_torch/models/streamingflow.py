@@ -236,7 +236,7 @@ class StreamingFlow(nn.Module):
                 # rematerialised ladder
                 feat = remat(enc.ladder, enc, self._generator,
                              enc.pillar_features(points))
-            elif self._remat_on() and not enc.cfg.REMAT_LADDER:
+            elif self._remat_on() and not enc.remat_ladder:
                 # spconv8x: the geometry (voxelize, maps, taps, occupancy)
                 # takes no gradient and runs once, outside; under
                 # REMAT_LADDER the encoder checkpoints each block itself

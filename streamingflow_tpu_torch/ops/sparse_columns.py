@@ -20,6 +20,8 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from .sparse import (candidate_outputs_1d, compact, conv_out_shape,
+                     first_of_runs)
 from .voxelize import LARGE_ID
 
 
@@ -53,23 +55,6 @@ def cloud(cs: ColumnSet, i: int) -> ColumnSet:
     return ColumnSet(*(None if f is None else f[i] for f in cs))
 
 
-def _first_of_runs(sorted_ids: torch.Tensor) -> torch.Tensor:
-    first = torch.ones_like(sorted_ids, dtype=torch.bool)
-    first[1:] = sorted_ids[1:] != sorted_ids[:-1]
-    return first
-
-
-def _compact(values: torch.Tensor, head: torch.Tensor, rank: torch.Tensor,
-             cap: int) -> torch.Tensor:
-    """(cap,) the value of each run head at its rank, LARGE_ID elsewhere
-    (segment_min of the JAX package)."""
-    out = torch.full((cap,), LARGE_ID, dtype=torch.long,
-                     device=values.device)
-    return out.scatter_reduce_(
-        0, torch.where(head, rank, cap).clamp(0, cap - 1),
-        torch.where(head, values, LARGE_ID), 'amin')
-
-
 def from_sites(feats: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor,
                shape: Tuple[int, int, int], cap_cols: int) -> ColumnSet:
     """Sorted site rows feats (V, C) with x-major ids (z minor) -> ColumnSet
@@ -79,10 +64,10 @@ def from_sites(feats: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor,
     ids = ids.long()
     cid = torch.where(mask, ids // nz, LARGE_ID)
     z = torch.where(mask, ids % nz, 0)
-    first = _first_of_runs(cid) & mask
+    first = first_of_runs(cid) & mask
     rank = torch.cumsum(first, 0) - 1
     row_ok = mask & (rank < cap_cols)
-    col_ids = _compact(cid, first & row_ok, rank, cap_cols)
+    col_ids = compact(cid, first & row_ok, rank, cap_cols)
     col_mask = col_ids < LARGE_ID
     col_coords = torch.stack([torch.where(col_mask, col_ids // ny, 0),
                               torch.where(col_mask, col_ids % ny, 0)], -1)
@@ -146,38 +131,23 @@ def mask_fused(x: torch.Tensor, zmask: torch.Tensor) -> torch.Tensor:
     return torch.where(zmask[..., None], xv, 0).reshape(x.shape)
 
 
-def _candidate_outputs_1d(i: torch.Tensor, k: int, s: int, p: int,
-                          n_out: int):
-    """Output positions o with o*s - p + t == i for a tap t in [0, k)
-    (ops/sparse.py of the JAX package): (cands (..., m), valid (..., m))."""
-    m = -(-k // s)
-    o0 = torch.div(i + p, s, rounding_mode='floor')
-    cands, valids = [], []
-    for j in range(m):
-        o = o0 - j
-        t = i + p - o * s
-        valids.append((t >= 0) & (t < k) & (o >= 0) & (o < n_out))
-        cands.append(o)
-    return torch.stack(cands, -1), torch.stack(valids, -1)
-
-
 def gen_output_columns(cs: ColumnSet, touches: torch.Tensor, kernel2, stride2,
                        pad2, out_grid, cap: int):
     """Active output columns of a strided conv: (ids, coords, mask), ids
     ascending.  ``touches`` (V,): the column has an active z that reaches a
     valid output z."""
-    cx, vx = _candidate_outputs_1d(cs.col_coords[:, 0].long(), kernel2[0],
-                                   stride2[0], pad2[0], out_grid[0])
-    cy, vy = _candidate_outputs_1d(cs.col_coords[:, 1].long(), kernel2[1],
-                                   stride2[1], pad2[1], out_grid[1])
+    cx, vx, _ = candidate_outputs_1d(cs.col_coords[:, 0].long(), kernel2[0],
+                                     stride2[0], pad2[0], out_grid[0])
+    cy, vy, _ = candidate_outputs_1d(cs.col_coords[:, 1].long(), kernel2[1],
+                                     stride2[1], pad2[1], out_grid[1])
     val = (vx[:, :, None] & vy[:, None, :]
            & (cs.col_mask & touches)[:, None, None])
     cand = torch.where(val, cx[:, :, None] * out_grid[1] + cy[:, None, :],
                        LARGE_ID).reshape(-1)
     ids_s = torch.sort(cand).values
-    first = _first_of_runs(ids_s) & (ids_s < LARGE_ID)
+    first = first_of_runs(ids_s) & (ids_s < LARGE_ID)
     rank = torch.cumsum(first, 0) - 1
-    out_ids = _compact(ids_s, first & (rank < cap), rank, cap)
+    out_ids = compact(ids_s, first & (rank < cap), rank, cap)
     out_mask = out_ids < LARGE_ID
     out_coords = torch.stack([torch.where(out_mask, out_ids // out_grid[1], 0),
                               torch.where(out_mask, out_ids % out_grid[1], 0)],
@@ -195,11 +165,6 @@ def z_touches_valid(nz_in: int, nz_out: int, kz: int, sz: int,
             if 0 <= zi < nz_in:
                 touch[zi] = True
     return touch
-
-
-def conv_out_shape(shape, kernel, stride, padding):
-    return tuple((shape[d] + 2 * padding[d] - kernel[d]) // stride[d] + 1
-                 for d in range(3))
 
 
 def padded_rows(feats: torch.Tensor, nz: int, front: int,
@@ -359,3 +324,23 @@ def columns_to_dense(cs: ColumnSet, shape: Tuple[int, int, int], C: int
                            cs.zmask[None], shape)
     return dense_features(cs.feats[None], cs.zmask[None], idx, shape,
                           C)[0], occ[0]
+
+
+def to_dense_bev(cs: ColumnSet, grid: Tuple[int, int], nz: int,
+                 C: int) -> torch.Tensor:
+    """Columns (V, nz*C) -> a dense (nx, ny, C*nz) BEV grid with the
+    reference's channel order c*nz + z (SparseConvTensor.dense and the view
+    at sparse_encoder.py:126-133); slots off col_mask add nothing.  A
+    leading cloud axis is allowed: (N, nx, ny, C*nz)."""
+    nx, ny = grid
+    lead = cs.col_ids.shape[:-1]
+    ids = cs.col_ids.reshape(-1, cs.col_ids.shape[-1]).long()
+    mask = cs.col_mask.reshape(ids.shape)
+    n, cells = ids.shape[0], nx * ny + 1
+    idx = torch.where(mask, ids, nx * ny) + \
+        cells * torch.arange(n, device=ids.device)[:, None]
+    feats = cs.feats.reshape(ids.numel(), -1)
+    dense = feats.new_zeros(n * cells, feats.shape[-1])
+    dense[idx.reshape(-1)] = torch.where(mask.reshape(-1, 1), feats, 0)
+    dense = dense.view(n, cells, -1)[:, :nx * ny].reshape(n, nx, ny, nz, C)
+    return dense.transpose(-1, -2).reshape(*lead, nx, ny, C * nz)

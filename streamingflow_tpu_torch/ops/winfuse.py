@@ -23,10 +23,13 @@ version.  bf16 features go to the tensor-core kernel, which takes its
 inputs as :func:`pitch_rows` and :func:`tap_weights` prepare them; fp32
 features go to the exact CUDA-core kernel (:func:`route`).
 
-The gradient (:class:`WinfuseConv`) is that of the JAX package's
-``_winfuse_bwd``: the XLA 'sep' conv differentiated over the map's full
-``found``, the taps the window plan dropped included.  So the forward takes
-the kept taps and the backward every found tap.  d feats
+The gradient (:class:`WinfuseConv`) takes the taps its caller gives as
+``grad_found``.  For 'winfuse' that is the JAX package's ``_winfuse_bwd``:
+the XLA 'sep' conv differentiated over the map's full ``found``, the taps
+the window plan dropped included, so the forward takes the kept taps and
+the backward every found tap.  'win' has no custom VJP in the JAX package,
+so its backward takes the kept taps (models/lidar_encoder.py::
+column_geometry).  d feats
 (:func:`subm_conv_dgrad`) is the same conv run backwards: K3's forward on
 the cotangent over the reversed map (:func:`reverse_map`) with the weights
 flipped and transposed.  d weights (:func:`subm_conv_wgrad`) is the kernel
@@ -42,17 +45,35 @@ from . import cuda_lib
 from .sparse_columns import ColumnMap, padded_rows, z_windows
 from .voxelize import LARGE_ID
 
-# widths the kernel takes: Cin, Cout of the column stages (5, 16, 32)
-MAX_CHANNELS = 32
+# widths the kernels take: Cin, Cout of the column stages (5 .. 128); past
+# NARROW_CHANNELS in or out the wide kernels run (stages 3 and 4 on columns)
+MAX_CHANNELS = 128
+NARROW_CHANNELS = 32
 # z the kernels take (the fp32 kernel gives each output z of a tile of
 # columns one thread)
 MAX_NZ = 256
 
 # kernel launches since the last reset (chip_smoke.py reads them): the
-# forward, d feats (the forward's kernels over the reversed map) and d weights
+# forward, d feats (the forward's kernels over the reversed map) and d
+# weights; the *_wide dicts count those of them that ran the wide kernels,
+# by the wider side's pitch (64 at stage 3, 128 at stage 4)
 launches = 0
 launches_dgrad = 0
 launches_wgrad = 0
+launches_wide = {}
+launches_dgrad_wide = {}
+launches_wgrad_wide = {}
+
+
+def is_wide(cin: int, cout: int) -> bool:
+    """Whether a conv of these widths runs the wide kernels."""
+    return max(cin, cout) > NARROW_CHANNELS
+
+
+def _count_wide(counts: dict, cin: int, cout: int) -> None:
+    if is_wide(cin, cout):
+        key = wide_pitch(max(cin, cout))
+        counts[key] = counts.get(key, 0) + 1
 
 
 def fused_found(cmap: ColumnMap, block: int, window: int,
@@ -92,6 +113,43 @@ def fused_found(cmap: ColumnMap, block: int, window: int,
     return keep.reshape(9, -1)[:, :cap], n_dropped
 
 
+def window_found(cmap: ColumnMap, block: int, window: int,
+                 resid_blocks: int):
+    """The taps the JAX package's 'win' formulation keeps
+    (ops/sparse_columns.py::build_window_plan and _subm_windowed): (found
+    (9, V) bool, n_dropped () int32).
+
+    The dx = 0 taps are always taken.  For each side row (dx = -1, +1) a
+    block of ``block`` output slots reads ``window`` (WINDOW_WIDTH) source
+    rows from the block's least found slot of that row, unaligned, the
+    start clipped to cap - window.  A side tap past its window is kept when
+    its block is one of the first ``resid_blocks`` blocks with such a tap
+    (the residual gathers take all six side taps of those blocks), dropped
+    otherwise; ``n_dropped`` counts the dropped taps."""
+    nbr, found = cmap.nbr.long(), cmap.found
+    cap = nbr.shape[1]
+    window = min(window, cap)
+    n_blocks = -(-cap // block)
+    pad = n_blocks * block - cap
+    slots = torch.cat([nbr, nbr.new_zeros(9, pad)], 1).view(9, n_blocks,
+                                                            block)
+    fnd = torch.cat([found, found.new_zeros(9, pad)], 1).view(9, n_blocks,
+                                                              block)
+    past = torch.zeros_like(fnd)
+    for d in (0, 2):                         # dx = -1, +1
+        s3, f3 = slots[3 * d:3 * d + 3], fnd[3 * d:3 * d + 3]
+        smin = torch.where(f3, s3, LARGE_ID).amin(dim=(0, 2))
+        start = torch.where(smin < LARGE_ID, smin, 0).clamp(
+            0, max(cap - window, 0))
+        past[3 * d:3 * d + 3] = s3 - start[None, :, None] >= window
+    over = fnd & past
+    block_over = over.any(2).any(0)
+    in_resid = block_over & (torch.cumsum(block_over, 0) - 1 < resid_blocks)
+    dropped = over & ~in_resid[None, :, None]
+    keep = fnd & ~dropped
+    return keep.reshape(9, -1)[:, :cap], dropped.sum().int()
+
+
 def subm_conv_plain(feats: torch.Tensor, nbr: torch.Tensor,
                     found: torch.Tensor, weights: torch.Tensor,
                     nz: int) -> torch.Tensor:
@@ -125,15 +183,20 @@ def _conv(feats, nbr, found, weights, nz):
     if feats.device.type != 'cuda':
         raise ValueError(f'subm_conv_winfuse: unsupported device '
                          f'{feats.device}')
-    return _winfuse_cuda(feats, torch.where(found, nbr, -1), weights, nz)
+    global launches
+    out = _winfuse_cuda(feats, torch.where(found, nbr, -1), weights, nz)
+    launches += 1
+    _count_wide(launches_wide, weights.shape[1], weights.shape[2])
+    return out
 
 
 class WinfuseConv(torch.autograd.Function):
-    """K3 with the JAX package's gradient (``_winfuse_bwd``): the forward
-    over the kept taps ``found``, the backward over every found tap
-    ``grad_found``.  It saves feats, weights, nbr, grad_found and the
-    reversed map (made in the backward when not given).  d feats only when
-    feats takes a gradient (conv_input's voxel features take none)."""
+    """K3 with the JAX package's gradient: the forward over the kept taps
+    ``found``, the backward over ``grad_found`` (every found tap for
+    'winfuse', as ``_winfuse_bwd``; the kept taps otherwise).  It saves
+    feats, weights, nbr, grad_found and the reversed map (made in the
+    backward when not given).  d feats only when feats takes a gradient
+    (conv_input's voxel features take none)."""
 
     @staticmethod
     def forward(ctx, feats, weights, nbr, found, grad_found, src_t, nz):
@@ -166,8 +229,8 @@ def subm_conv_winfuse(feats: torch.Tensor, nbr: torch.Tensor,
     weights (27, Cin, Cout), row 3k + tz -> (V, nz*Cout) in feats' type.
 
     Differentiable in feats and weights (:class:`WinfuseConv`): the
-    backward runs over ``grad_found`` (the map's full found; ``found`` when
-    not given) and ``src_t`` (:func:`reverse_map` of nbr and grad_found,
+    backward runs over ``grad_found`` ('winfuse': the map's full found;
+    ``found`` when not given) and ``src_t`` (:func:`reverse_map` of nbr and grad_found,
     made in the backward when not given)."""
     if weights.shape[0] != 27:
         raise ValueError('subm_conv_winfuse is specialised to 3x3x3: '
@@ -216,8 +279,9 @@ def subm_conv_dgrad(g: torch.Tensor, src_t: torch.Tensor,
         return subm_conv_plain(g, src_t.clamp(min=0), src_t >= 0, w, nz)
     if g.device.type != 'cuda':
         raise ValueError(f'subm_conv_dgrad: unsupported device {g.device}')
-    out = _winfuse_cuda(g, src_t, w, nz, count=False)
+    out = _winfuse_cuda(g, src_t, w, nz)
     launches_dgrad += 1
+    _count_wide(launches_dgrad_wide, w.shape[1], w.shape[2])
     return out
 
 
@@ -243,7 +307,7 @@ def subm_conv_wgrad(feats: torch.Tensor, nbr: torch.Tensor,
                     found: torch.Tensor, g: torch.Tensor,
                     nz: int) -> torch.Tensor:
     """d weights of :func:`subm_conv_winfuse` for the cotangent g
-    (V, nz*Cout), over the found taps (the backward's full found):
+    (V, nz*Cout), over the found taps (the backward's ``grad_found``):
 
         dW[3k + tz, i, j] = sum over v with found[k, v], output z zo with
                             0 <= zo + tz - 1 < nz of
@@ -285,6 +349,12 @@ def channel_pitch(cin: int) -> int:
     return 8 if cin <= 8 else 16 if cin <= 16 else 32
 
 
+def wide_pitch(c: int) -> int:
+    """Channels of a z row as the wide tensor-core kernels take it: 32,
+    64 or 128."""
+    return 32 if c <= 32 else 64 if c <= 64 else 128
+
+
 def tap_weights(weights: torch.Tensor, cp: int) -> torch.Tensor:
     """(27, Cin, Cout) -> the tensor-core kernel's per-tap B, (9, K, N) bf16:
     B[k, tz*cp + i, j] = weights[3k + tz, i, j], zero for i >= Cin, for
@@ -297,6 +367,40 @@ def tap_weights(weights: torch.Tensor, cp: int) -> torch.Tensor:
     b[:, :3 * cp].view(9, 3, cp, n)[:, :, :cin, :cout] = \
         weights.reshape(9, 3, cin, cout)
     return b
+
+
+# output channels a block of the wide bf16 forward computes
+WIDE_N = 32
+
+
+def wide_tap_weights(weights: torch.Tensor, cp: int) -> torch.Tensor:
+    """(27, Cin, Cout) -> the wide tensor-core kernel's B fragments, bf16
+    (chunks, 9, ks, 2, 32, 4, 2) for chunks = ceil(Cout / WIDE_N) blocks of
+    output channels and ks = 3*cp / 16 k16 steps.  B[k, kk, n] =
+    weights[3k + kk // cp, kk % cp, n] (zero past Cin and Cout), and lane l
+    of step s holds, for n-tile pair p, word w and half h:
+
+        B[k, 16 s + 2 (l % 4) + 8 (w % 2) + h, 32 chunk + 8 (2p + w // 2)
+          + l // 4]
+
+    the order in which the narrow kernel stages w_s (its b0 and b1 of two
+    n-tiles a 16-byte load), so one bulk copy a (chunk, tap) moves it."""
+    _, cin, cout = weights.shape
+    k_pad = -(-3 * cp // 16) * 16
+    chunks = -(-cout // WIDE_N)
+    b = weights.new_zeros(9, k_pad, chunks * WIDE_N, dtype=torch.bfloat16)
+    b[:, :3 * cp].view(9, 3, cp, chunks * WIDE_N)[:, :, :cin, :cout] = \
+        weights.reshape(9, 3, cin, cout)
+    dev = weights.device
+    s = torch.arange(k_pad // 16, device=dev).view(-1, 1, 1, 1, 1)
+    p = torch.arange(2, device=dev).view(1, 2, 1, 1, 1)
+    lane = torch.arange(32, device=dev).view(1, 1, 32, 1, 1)
+    word = torch.arange(4, device=dev).view(1, 1, 1, 4, 1)
+    half = torch.arange(2, device=dev).view(1, 1, 1, 1, 2)
+    kk = 16 * s + 2 * (lane % 4) + 8 * (word % 2) + half
+    n = 8 * (2 * p + word // 2) + lane // 4
+    bc = b.view(9, k_pad, chunks, WIDE_N).permute(2, 0, 1, 3)
+    return bc[:, :, kk, n].contiguous()
 
 
 def pitch_rows(feats: torch.Tensor, nz: int, cp: int) -> torch.Tensor:
@@ -323,10 +427,9 @@ def _check_rows(name, rows, nz, c):
                          f' got {tuple(rows.shape)}')
 
 
-def _winfuse_cuda(feats, src, weights, nz, count=True):
+def _winfuse_cuda(feats, src, weights, nz):
     """K3 on the card: src (9, V) int32, a source row per tap, -1 where the
-    tap is not taken."""
-    global launches
+    tap is not taken.  Past NARROW_CHANNELS in or out the wide kernels."""
     cin, cout = weights.shape[1], weights.shape[2]
     if not (1 <= cin <= MAX_CHANNELS and 1 <= cout <= MAX_CHANNELS):
         raise ValueError(f'winfuse kernel takes 1..{MAX_CHANNELS} channels '
@@ -341,8 +444,13 @@ def _winfuse_cuda(feats, src, weights, nz, count=True):
     out = torch.empty(v, nz * cout, dtype=feats.dtype, device=feats.device)
     stream = torch.cuda.current_stream(feats.device).cuda_stream
     if feats.dtype == torch.bfloat16:
-        cp = channel_pitch(cin)
-        rows, w = pitch_rows(feats, nz, cp), tap_weights(weights, cp)
+        if is_wide(cin, cout):
+            cp = wide_pitch(cin)
+            w = wide_tap_weights(weights, cp)
+        else:
+            cp = channel_pitch(cin)
+            w = tap_weights(weights, cp)
+        rows = pitch_rows(feats, nz, cp)
         err = cuda_lib.kernel('winfuse', 'sf_winfuse_bf16')(
             rows.data_ptr(), src.data_ptr(), w.data_ptr(), out.data_ptr(), v,
             nz, cp, cout, stream)
@@ -352,8 +460,6 @@ def _winfuse_cuda(feats, src, weights, nz, count=True):
             feats.data_ptr(), src.data_ptr(), w.data_ptr(), out.data_ptr(), v,
             nz, cin, cout, stream)
     cuda_lib.check('winfuse', err)
-    if count:
-        launches += 1
     return out
 
 
@@ -365,12 +471,22 @@ WGRAD_BLOCKS_PER_SM = 2
 def wgrad_rows(feats: torch.Tensor, g: torch.Tensor, nz: int):
     """The bf16 d-weights kernel's rows: (feats at Cin's channel pitch cp,
     cp, g at Cout's pitch np, np), each from :func:`pitch_rows` (the rows
-    themselves where Cin or Cout already is a pitch, 8, 16 or 32).  Every
-    z row then starts on 16 bytes, as the kernel's 16-byte copies and its
-    ldmatrix rows need."""
+    themselves where Cin or Cout already is a pitch: 8, 16 or 32, or for
+    the wide kernel 32, 64 or 128).  Every z row then starts on 16 bytes,
+    as the kernel's 16-byte copies and its ldmatrix rows need."""
     cin, cout = feats.shape[1] // nz, g.shape[1] // nz
-    cp, np_ = channel_pitch(cin), channel_pitch(cout)
+    pitch = wide_pitch if is_wide(cin, cout) else channel_pitch
+    cp, np_ = pitch(cin), pitch(cout)
     return pitch_rows(feats, nz, cp), cp, pitch_rows(g, nz, np_), np_
+
+
+def wgrad_parts(dev, cin: int, cout: int) -> int:
+    """Partial sums the d-weights kernels may write: WGRAD_BLOCKS_PER_SM a
+    multiprocessor, shared by the blocks of the (Cin, Cout) chunks of the
+    wide kernels (one a 32 x 32 chunk)."""
+    chunks = -(-cin // NARROW_CHANNELS) * -(-cout // NARROW_CHANNELS)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return max(1, WGRAD_BLOCKS_PER_SM * sms // chunks)
 
 
 def _wgrad_cuda(feats, nbr, found, g, nz):
@@ -394,8 +510,7 @@ def _wgrad_cuda(feats, nbr, found, g, nz):
         raise ValueError('winfuse wgrad kernel: inputs on different devices')
     src = torch.where(found, nbr, -1).contiguous()
     dev = feats.device
-    max_parts = WGRAD_BLOCKS_PER_SM * \
-        torch.cuda.get_device_properties(dev).multi_processor_count
+    max_parts = wgrad_parts(dev, cin, cout)
     scratch = torch.empty(max_parts, 27 * cin * cout, dtype=torch.float32,
                           device=dev)
     out = torch.empty(27, cin, cout, dtype=torch.float32, device=dev)
@@ -413,4 +528,5 @@ def _wgrad_cuda(feats, nbr, found, g, nz):
             stream)
     cuda_lib.check('winfuse_wgrad', err)
     launches_wgrad += 1
+    _count_wide(launches_wgrad_wide, cin, cout)
     return out

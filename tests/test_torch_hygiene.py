@@ -48,7 +48,8 @@ def test_no_port_file_imports_jax_or_the_jax_package():
             'launch.py', 'dryrun_multichip.py', 'torch_convert.py',
             'convert_checkpoint.py', 'rules_prediction_lc_ode_variable.py',
             'distributions.py', 'device.py', 'cost.py', 'planning.py',
-            'srvp_vgg.py', 'tools.py', 'network.py'} <= names
+            'srvp_vgg.py', 'tools.py', 'network.py', 'sparse.py',
+            'sparse_tiled.py'} <= names
     bad = [(str(p.relative_to(ROOT)), name) for p in files
            for name in _imports(p)
            if name.split('.')[0] in FORBIDDEN]
@@ -116,7 +117,9 @@ def test_import_needs_neither_jax_nor_yaml():
             'streamingflow_tpu_torch.ops.cost, '
             'streamingflow_tpu_torch.layers.srvp_vgg, '
             'streamingflow_tpu_torch.utils.tools, '
-            'streamingflow_tpu_torch.utils.network; '
+            'streamingflow_tpu_torch.utils.network, '
+            'streamingflow_tpu_torch.ops.sparse, '
+            'streamingflow_tpu_torch.ops.sparse_tiled; '
             'print(sorted(m for m in ("jax", "flax", "orbax", "cv2", "PIL", '
             '"yaml", "matplotlib", "streamingflow_tpu") '
             'if m in sys.modules))')
@@ -154,15 +157,23 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert P.build_trainer(cfg, device='cpu').device.type == 'cpu'
 
 
-def test_unported_backbone_names_the_roadmap():
+@pytest.mark.parametrize('engine', ['gather', 'tiled', 'sparse'])
+def test_build_model_takes_the_documented_sparse_engines(engine):
+    """build_model builds spconv8x on every documented SPARSE_ENCODER.ENGINE
+    and refuses any other by name (the JAX encoder would run 'gather')."""
     import streamingflow_tpu_torch as P
     from streamingflow_tpu_torch.data import tiny_config
     cfg = tiny_config()
     cfg.MODEL.MODALITY.USE_LIDAR = True
     cfg.MODEL.LIDAR.BACKBONE = 'spconv8x'
-    cfg.MODEL.SPARSE_ENCODER.ENGINE = 'tiled'
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        P.build_model(cfg, device='cpu')
+    cfg.MODEL.SPARSE_ENCODER.ENGINE = engine
+    if engine == 'sparse':
+        with pytest.raises(ValueError, match='ENGINE'):
+            P.build_model(cfg, device='cpu')
+        return
+    model = P.build_model(cfg, device='cpu')
+    assert model.lidar_encoder.cfg.ENGINE == engine
+    assert not model.lidar_encoder.remat_ladder
 
 
 def test_chip_smoke_needs_the_card(tmp_path):

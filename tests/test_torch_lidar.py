@@ -101,16 +101,6 @@ def test_lidar_encoder_matches_jax():
     assert [int(v.sum()) for v in enc.last_n_dropped.values()] == [0, 0]
 
 
-@pytest.mark.parametrize('key,value', [
-    ('ENGINE', 'tiled'), ('ENGINE', 'gather'), ('Z_FORMULATION', 'banded'),
-    ('DENSE_TAIL_FROM_STAGE', 4)])
-def test_unported_encoder_options_name_the_roadmap(key, value):
-    se = _port_se(_micro_se())
-    setattr(se, key, value)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        PL.LidarBEVEncoder(se)
-
-
 def test_flagship_encoder_converts_completely():
     """The flagship spconv8x encoder's JAX variable tree (shapes from
     eval_shape) maps onto the port's module, every leaf consumed, every

@@ -143,3 +143,58 @@ def test_prepared_walk_matches_plain(cin, nz):
 def test_route_by_dtype():
     assert WF.route(torch.bfloat16).startswith('tensor cores')
     assert WF.route(torch.float32).startswith('CUDA cores')
+
+
+def _staged_w_s(b, cp, nt):
+    """The narrow kernel's prologue, element for element: w_s of
+    tap_weights' (9, K, 8*nt) B as it stages it, (9, K/16, nt/2, 32, 4, 2)
+    (lane, word, half of each 16-byte fragment load)."""
+    k_pad = b.shape[1]
+    out = torch.zeros(9 * (k_pad // 16) * (nt // 2) * 32 * 8,
+                      dtype=b.dtype)
+    flat = b.reshape(-1, 8 * nt)
+    for kr in range(flat.shape[0]):
+        kk = kr % k_pad
+        kin = kk % 16
+        for nt_i in range(nt):
+            frag = ((kr // k_pad * (k_pad // 16) + kk // 16) * (nt // 2)
+                    + nt_i // 2) * 32
+            word = (nt_i % 2) * 2 + kin // 8
+            for c in range(8):
+                ln = frag + 4 * c + (kin % 8) // 2
+                out[(ln * 4 + word) * 2 + kin % 2] = flat[kr, 8 * nt_i + c]
+    return out.view(9, k_pad // 16, nt // 2, 32, 4, 2)
+
+
+@pytest.mark.parametrize('cin,cp', [(5, 8), (20, 32)])
+def test_wide_weights_are_the_narrow_kernels_fragment_order(cin, cp):
+    """wide_tap_weights lays out each 32-channel chunk of Cout as the
+    narrow kernel's prologue stages w_s (NT = 4), so the wide kernel's bulk
+    copy of a (chunk, tap) block feeds the same fragment loads."""
+    rng = np.random.default_rng(1)
+    w = torch.from_numpy(rng.standard_normal((27, cin, 72)).astype(
+        np.float32))
+    wide = WF.wide_tap_weights(w, cp)
+    assert tuple(wide.shape) == (3, 9, -(-3 * cp // 16), 2, 32, 4, 2)
+    for chunk in range(3):
+        part = w[..., 32 * chunk:32 * chunk + 32]
+        b = WF.tap_weights(torch.cat(
+            [part, part.new_zeros(27, cin, 32 - part.shape[2])], 2), cp)
+        assert torch.equal(wide[chunk], _staged_w_s(b, cp, 4)), chunk
+
+
+@pytest.mark.parametrize('cin,cout,pitches', [
+    (64, 64, (64, 64)), (128, 128, (128, 128)), (16, 100, (32, 128)),
+    (16, 16, (16, 16)), (5, 32, (8, 32))])
+def test_wgrad_rows_take_the_wide_pitches_past_32_channels(cin, cout,
+                                                            pitches):
+    nz = 3
+    feats = torch.randn(4, nz * cin).to(torch.bfloat16)
+    g = torch.randn(4, nz * cout).to(torch.bfloat16)
+    rows, cp, g_rows, np_ = WF.wgrad_rows(feats, g, nz)
+    assert (cp, np_) == pitches
+    assert WF.is_wide(cin, cout) == (max(cin, cout) > 32)
+    assert tuple(rows.shape) == (4, nz * cp)
+    assert torch.equal(rows.view(4, nz, cp)[..., :cin],
+                       feats.view(4, nz, cin))
+    assert float(g_rows.view(4, nz, np_)[..., cout:].abs().sum()) == 0

@@ -214,7 +214,8 @@ def test_dropped_taps_enter_the_gradient():
 
 def test_wrapper_raises_on_shapes_the_kernel_does_not_take():
     nz = 5
-    feats = torch.zeros(4, nz * 33, dtype=torch.bfloat16)
+    # past the kernels' 128 channels (33 to 128 take the wide kernels)
+    feats = torch.zeros(4, nz * 129, dtype=torch.bfloat16)
     g = torch.zeros(4, nz * 16, dtype=torch.bfloat16)
     nbr = torch.zeros(9, 4, dtype=torch.int32)
     found = torch.ones(9, 4, dtype=torch.bool)
