@@ -52,7 +52,14 @@ line (``phases``).  Phases, each printing one JSON line:
                  wide kernels (past 32 channels) at stage 3 (64 -> 64, nz
                  11) and stage 4 (128 -> 128, nz 5) of the same clouds'
                  DENSE_TAIL_FROM_STAGE 0 geometry, forward, d feats and d
-                 weights, bf16 and fp32, under the same bars
+                 weights, bf16 and fp32, under the same bars; the bf16 ones
+                 timed in turns against the design they replaced
+                 (csrc/winfuse_wide_parent.cu, held to the same bars), each
+                 row's share of its bound, and the wide forward's time
+                 split by two ablations (products alone, copies alone);
+                 and the wide bf16 kernels past the row masks' 32 z (the
+                 flagship's 41, 64 -> 128 on one cloud's stage-1 columns),
+                 forward, d feats and d weights, under the same bars
   6. tiny        a tiny camera+LiDAR forward on the card (kernels) vs the
                  same weights on the CPU (plain versions)
   7. tiny_spconv the same on the spconv8x backbone ('winfuse')
@@ -1264,6 +1271,9 @@ def _wgrad_gemm_alone(feats, geo, g, nz):
 # ablations of the bf16 d weights (csrc/winfuse_wgrad.cu), timed beside it
 WGRAD_PARTS = {'lists_only_ms': ('WINFUSE_WGRAD_PART=1',),
                'no_gather_ms': ('WINFUSE_WGRAD_PART=2',)}
+# ablations of the wide bf16 forward (csrc/winfuse.cu, namespace wide)
+WIDE_PARTS = {'copies_only_ms': ('WINFUSE_WIDE_PART=1',),
+              'products_only_ms': ('WINFUSE_WIDE_PART=2',)}
 
 
 def _wgrad_parts_ms(feats, geo, g, nz):
@@ -1289,8 +1299,8 @@ def _wgrad_parts_ms(feats, geo, g, nz):
                              defines)
         times[key] = cuda_ms(lambda: cuda_lib.check('winfuse_wgrad', fn(
             rows.data_ptr(), src.data_ptr(), g_rows.data_ptr(),
-            scratch.data_ptr(), parts, out.data_ptr(), rows_n, nz, cp, cin,
-            np_, cout, stream)))
+            scratch.data_ptr(), parts, None, out.data_ptr(), rows_n, nz, cp,
+            cin, np_, cout, stream)))
     return times
 
 
@@ -1421,6 +1431,132 @@ def _winfuse_bwd_case(name, feats, geo, w, nz, zmask, reps=5,
     if kept_dw is not None:
         out['wgrad']['kept_taps_only_max_abs_diff'] = \
             max_err(kept_dw, exact_dw)[0]
+    return out
+
+
+def parent_wide_tap_weights(weights, cp):
+    """The B layout of csrc/winfuse_wide_parent.cu's forward (the wide
+    kernel before its redesign): (chunks of 32 output channels, 9,
+    3*cp/16, 2, 32, 4, 2), each 32-channel chunk in the narrow kernel's
+    fragment order."""
+    import torch
+    _, cin, cout = weights.shape
+    k_pad = 3 * cp
+    chunks = -(-cout // 32)
+    b = weights.new_zeros(9, k_pad, chunks * 32, dtype=torch.bfloat16)
+    b.view(9, 3, cp, chunks * 32)[:, :, :cin, :cout] = \
+        weights.reshape(9, 3, cin, cout)
+    dev = weights.device
+    s = torch.arange(k_pad // 16, device=dev).view(-1, 1, 1, 1, 1)
+    p = torch.arange(2, device=dev).view(1, 2, 1, 1, 1)
+    lane = torch.arange(32, device=dev).view(1, 1, 32, 1, 1)
+    word = torch.arange(4, device=dev).view(1, 1, 1, 4, 1)
+    half = torch.arange(2, device=dev).view(1, 1, 1, 1, 2)
+    kk = 16 * s + 2 * (lane % 4) + 8 * (word % 2) + half
+    n = 8 * (2 * p + word // 2) + lane // 4
+    bc = b.view(9, k_pad, chunks, 32).permute(2, 0, 1, 3)
+    return bc[:, :, kk, n].contiguous()
+
+
+def _wide_parent_ab(name, feats, geo, w, nz, zmask, reps=5):
+    """The redesigned wide bf16 kernels against the ones they replace
+    (csrc/winfuse_wide_parent.cu, the parent's design) on the same inputs:
+    the forward, d feats (over the reversed map, flipped weights) and d
+    weights, each through the port's wrapper and the parent's through the
+    same preparation.  Each parent result is held against its plain
+    version at the case's bars; times in the order parent, new, new,
+    parent (``reps`` launches each)."""
+    import torch
+    from streamingflow_tpu_torch.ops import cuda_lib
+    from streamingflow_tpu_torch.ops import winfuse as WF
+    dev = feats.device
+    rows_n, cin, cout = geo.nbr.shape[1], w.shape[1], w.shape[2]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    g = (torch.randn(rows_n, nz, cout, device=dev, generator=gen) *
+         zmask.reshape(rows_n, nz, 1)).to(feats.dtype).reshape(
+             rows_n, nz * cout)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    fwd = cuda_lib.kernel('winfuse_wide_parent', 'sf_winfuse_bf16_parent')
+    wgr = cuda_lib.kernel('winfuse_wide_parent',
+                          'sf_winfuse_wgrad_bf16_parent')
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def parent_conv(x, src, wt):
+        co = wt.shape[2]
+        cp = WF.wide_pitch(wt.shape[1])
+        wk = parent_wide_tap_weights(wt, cp)
+        rows = WF.pitch_rows(x, nz, cp)
+        out = torch.empty(src.shape[1], nz * co, dtype=x.dtype, device=dev)
+        cuda_lib.check('winfuse_wide_parent', fwd(
+            rows.data_ptr(), src.data_ptr(), wk.data_ptr(), out.data_ptr(),
+            src.shape[1], nz, cp, co, stream))
+        return out
+
+    def parent_wgrad():
+        rows, cp, g_rows, np_ = WF.wgrad_rows(feats, g, nz)
+        src = torch.where(geo.grad_found, geo.nbr, -1).contiguous()
+        parts = max(1, WF.WGRAD_BLOCKS_PER_SM * sms //
+                    (-(-cin // 32) * -(-cout // 32)))
+        scratch = torch.empty(parts, 27 * cin * cout, device=dev)
+        out = torch.empty(27, cin, cout, device=dev)
+        cuda_lib.check('winfuse_wide_parent', wgr(
+            rows.data_ptr(), src.data_ptr(), g_rows.data_ptr(),
+            scratch.data_ptr(), parts, out.data_ptr(), rows_n, nz, cp, cin,
+            np_, cout, stream))
+        return out
+
+    src_f = torch.where(geo.found, geo.nbr, -1).int().contiguous()
+    flipped = WF.flipped_weights(w)
+    # the forward's ablations on its prepared inputs (results wrong by
+    # design, not read)
+    cp = WF.wide_pitch(cin)
+    rows = WF.pitch_rows(feats, nz, cp)
+    wk = WF.wide_tap_weights(w, cp, nz)
+    masks = torch.empty(rows.shape[0], dtype=torch.int32, device=dev)
+    scratch_out = torch.empty(rows_n, nz * cout, dtype=feats.dtype,
+                              device=dev)
+    parts = {}
+    for key, defines in WIDE_PARTS.items():
+        fn = cuda_lib.kernel('winfuse', 'sf_winfuse_bf16', defines)
+        parts[key] = cuda_ms(lambda: cuda_lib.check('winfuse', fn(
+            rows.data_ptr(), src_f.data_ptr(), wk.data_ptr(),
+            scratch_out.data_ptr(), rows_n, nz, cp, cout, masks.data_ptr(),
+            rows.shape[0], stream)), reps=reps)
+    legs = {
+        'forward': (
+            lambda: WF.subm_conv_winfuse(feats, geo.nbr, geo.found, w, nz),
+            lambda: parent_conv(feats, src_f, w),
+            WF.subm_conv_plain(feats, geo.nbr, geo.found, w, nz), 'fwd'),
+        'dgrad': (
+            lambda: WF.subm_conv_dgrad(g, geo.src_t, w, nz),
+            lambda: parent_conv(g, geo.src_t, flipped),
+            WF.subm_conv_plain(g, geo.src_t.clamp(min=0), geo.src_t >= 0,
+                               flipped, nz), 'dgrad'),
+        'wgrad': (
+            lambda: WF.subm_conv_wgrad(feats, geo.nbr, geo.grad_found, g,
+                                       nz),
+            parent_wgrad,
+            WF.subm_conv_wgrad_plain(feats.double(), geo.nbr,
+                                     geo.grad_found, g.double(), nz),
+            'wgrad')}
+    out = dict(case=name, nz=nz, cin=cin, cout=cout, reps=reps,
+               order='parent, new, new, parent')
+    for leg, (new, parent, want, kind) in legs.items():
+        got = parent()
+        torch.cuda.synchronize()
+        scale = float(want.float().abs().max())
+        tol = (dict(rtol=2 ** -7, atol=1e-2) if kind == 'fwd' else
+               dict(rtol=2 ** -7, atol=2 ** -7 * scale) if kind == 'dgrad'
+               else dict(rtol=1e-4, atol=1e-4 * scale))
+        check_close(f'winfuse parent {leg} {name}', got, want, **tol)
+        runs = [cuda_ms(fn, reps=reps) for fn in (parent, new, new, parent)]
+        out[leg] = dict(parent_max_abs_err=max_err(got, want)[0],
+                        tolerance=tol, parent_runs_ms=[runs[0], runs[3]],
+                        new_runs_ms=[runs[1], runs[2]],
+                        parent_ms=(runs[0] + runs[3]) / 2,
+                        ms=(runs[1] + runs[2]) / 2)
+        out[leg]['speedup'] = out[leg]['parent_ms'] / out[leg]['ms']
+    out['forward']['kernel_parts'] = parts
     return out
 
 
@@ -1618,7 +1754,9 @@ def phase_winfuse(dev, results):
     # the wide kernels (Cin, Cout past 32): stages 3 and 4 on columns
     # (DENSE_TAIL_FROM_STAGE 0), bf16 as the forecast and the step run them
     # and fp32, forward and backward, under the same bars
-    wide_cases, wide_bwd = [], []
+    # and the bf16 ones against the parent's design in the same call (the
+    # A/B: parent_ms beside ms, and each row's share of its bound)
+    wide_cases, wide_bwd, wide_ab = [], [], []
     for name, (f, geo, w, nz, zm) in k3_wide_inputs(dev, x).items():
         wide_cases += [
             _winfuse_case(name, f, geo, w, nz, zm, reps=5),
@@ -1629,18 +1767,37 @@ def phase_winfuse(dev, results):
                               ablations=False),
             _winfuse_bwd_case(f'{name}_fp32', f.float(), geo, w.float(), nz,
                               zm, reps=2, ablations=False)]
+        wide_ab.append(_wide_parent_ab(name, f, geo, w, nz, zm))
         width = w.shape[2]
-        c = wide_cases[-2]
+        c, ab = wide_cases[-2], wide_ab[-1]
         results[f'winfuse_wide{width}'] = dict(
             max_abs_err=c['max_abs_err'], ms=c['kernel_ms'],
             plain_ms=c['twin_ms'], library_ms=None,
-            bound_ms=c['bound_us'] / 1e3, bound_by=c['bound_by'])
+            bound_ms=c['bound_us'] / 1e3, bound_by=c['bound_by'],
+            ab_ms=ab['forward']['ms'], parent_ms=ab['forward']['parent_ms'])
         for kind in ('dgrad', 'wgrad'):
             c = wide_bwd[-2][kind]
             results[f'winfuse_{kind}_wide{width}'] = dict(
                 max_abs_err=c['max_abs_err'], ms=c['ms'],
                 plain_ms=c['plain_ms'], library_ms=None,
-                bound_ms=c['bound_ms'], bound_by=c['bound_by'])
+                bound_ms=c['bound_ms'], bound_by=c['bound_by'],
+                ab_ms=ab[kind]['ms'], parent_ms=ab[kind]['parent_ms'])
+        for kind in ('', 'dgrad_', 'wgrad_'):
+            r = results[f'winfuse_{kind}wide{width}']
+            r['bound_share'] = r['bound_ms'] / r['ms']
+    # the wide kernels past the row masks' 32 z: the flagship's 41 z on the
+    # first cloud's stage-1 columns, 64 -> 128 (pitch 64, two channel
+    # groups) and, for d feats, 128 -> 64 (pitch 128, one group)
+    cs1_0 = SC.ColumnSet(*(None if t is None else t[:1] for t in cs1))
+    geo1_0 = L.column_geometry(cs1_0, tuple(se.SPARSE_SHAPE)[:2], se)
+    f41 = SC.mask_fused(rand(1, cap1, nz1 * 64), cs1_0.zmask).reshape(
+        -1, nz1 * 64)
+    w41 = weights(64, 128)
+    wide_cases.append(_winfuse_case(f'wide_nz{nz1}', f41, geo1_0, w41, nz1,
+                                    cs1_0.zmask, reps=2))
+    wide_bwd.append(_winfuse_bwd_case(f'wide_nz{nz1}', f41, geo1_0, w41,
+                                      nz1, cs1_0.zmask, reps=2,
+                                      ablations=False))
     results['winfuse_wgrad']['gemm_alone_ms'] = \
         main_bwd['wgrad']['gemm_alone_ms']
     # the tensor-core d weights keeps its sums in registers: no spill
@@ -1661,6 +1818,7 @@ def phase_winfuse(dev, results):
                         'forced': drops},
           'cases': cases, 'backward_cases': bwd,
           'wide_cases': wide_cases, 'wide_backward_cases': wide_bwd,
+          'wide_parent_ab': wide_ab,
           'ptxas': _ptxas_report(cuda_lib.BUILD_LOG.get('winfuse', '')),
           'wgrad_ptxas': wgrad_ptxas,
           'down1_plain_ms_per_cloud': down1_ms,
@@ -3998,14 +4156,16 @@ def main(argv=None):
     from streamingflow_tpu_torch.ops import cuda_lib
     t0 = time.perf_counter()
     # every source, the pool's loads-only variant (phase patch_pool) and the
-    # d weights' ablations (phase winfuse), all nvcc processes started
-    # together
-    with ThreadPoolExecutor(4) as pool:
+    # d weights' and the wide forward's ablations (phase winfuse), all nvcc
+    # processes started together
+    with ThreadPoolExecutor(6) as pool:
         jobs = [pool.submit(cuda_lib.build),
                 pool.submit(cuda_lib.build, ['patch_pool'],
                             ('PATCH_POOL_LOADS_ONLY=1',))]
         jobs += [pool.submit(cuda_lib.build, ['winfuse_wgrad'], part)
                  for part in WGRAD_PARTS.values()]
+        jobs += [pool.submit(cuda_lib.build, ['winfuse'], part)
+                 for part in WIDE_PARTS.values()]
         for job in jobs:
             job.result()
     emit({'phase': 'build', 'seconds': time.perf_counter() - t0,

@@ -57,19 +57,48 @@
 // all-zero input rows skipped uniformly across a lane group.
 //
 // Past 32 channels in or out (stages 3 and 4 on columns: 64 and 128, with
-// DENSE_TAIL_FROM_STAGE 0, 4 or 5) a first, simple design: block row y of
-// the grid computes output channels 32y .. 32y + 31, so a tile's source
-// rows are gathered once per 32 output channels.
-//   - bf16: the same warp-specialised kernel with CP 32, 64 or 128 and
-//     N = 32; the 9 taps' B no longer fit in shared memory beside the
-//     ring, so each ring step carries its tap's B fragments for the block's
-//     channels (one more bulk copy), in a ring of 3.
+// DENSE_TAIL_FROM_STAGE 0, 4 or 5):
+//   - bf16 (namespace wide): a block computes all output channels of its
+//     tile (NG groups of 64, one block row of the grid per NG groups), so a
+//     tap's source rows cross into shared memory once a tile.  One tap's B
+//     at stage 4 (3*128 x 128 bf16, 96 KB) does not fit beside the rows
+//     twice, so B streams in (tap, z tap) slabs (whole taps where a tap's
+//     slab is at most 24 KB) through a ring of 3 or 4, while the taps' rows
+//     sit in their own ring.  The 8 warps own 64 output channels each (8
+//     n-tiles) and 3 m16 fragments of a tile of up to 48 columns (tile*nz
+//     items: 190 of 192 at stage 4, 374 of 384 at stage 3).  Items run
+//     z-major (neighbouring columns at one z a fragment), and a first
+//     kernel (row_masks) marks the source rows that are not all zero (up to
+//     32 z; past it every z is marked): only those of found columns are
+//     staged, and a fragment none of whose rows is marked at a z tap skips
+//     it (neighbouring columns' inputs at one z are inactive together more
+//     often than a column's z are).  Every
+//     thread issues its share of the copies (the slab in 16 KB bulk
+//     copies, the rows 16 bytes a cp.async into chunks XOR-swizzled by row,
+//     so an ldmatrix's 8 rows fall in 8 bank groups), all completing on one
+//     mbarrier a ring slot; one block barrier a substep.  What bounds it:
+//     the products of the marked rows (the dense z of every found tap
+//     before skipping, ~2-4x the active sites') and, at stage 3, the
+//     shared-memory reads of B fragments, which every warp loads for its
+//     64 channels; the slabs, 9 a tile at stage 3 and 27 at stage 4, come
+//     from L2.
 //   - fp32: the CUDA-core tile with the rows staged at 32, 64 or 128
 //     channels and the tap's weights staged with them, each item's sum
-//     taken over the input channels 32 at a time.
+//     taken over the input channels 32 at a time; block row y of the grid
+//     computes output channels 32y .. 32y + 31.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// Built with WINFUSE_WIDE_PART=1 (the copies and barriers alone, no
+// products) or 2 (the products alone, of whatever the buffers hold, the
+// fragments skipped as the row masks say), the wide bf16 kernel is an
+// ablation whose result is wrong; chip_smoke.py times both to split the
+// kernel's time.
+#ifndef WINFUSE_WIDE_PART
+#define WINFUSE_WIDE_PART 0
+#endif
+
 
 namespace {
 
@@ -403,436 +432,417 @@ cudaError_t launch_wide(const float* feats, const int* src, const float* w,
 
 // ------------------------------------------------------------------ bf16
 
-namespace tc {
+#include "winfuse_tc.cuh"
 
-// the products; with the copy warp 9 warps, so a thread may hold more
-// registers than 128 (12 warps capped it there and spilled)
-constexpr int kConsumerWarps = 8;
-constexpr int kConsumers = 32 * kConsumerWarps;
-constexpr int kThreads = kConsumers + 32;  // and one warp for the copies
-constexpr int kStages = 6;     // ring of staged (tile, tap) steps
-constexpr int kStagesWide = 3;  // the wide kernel's ring (a step carries B)
-constexpr int kWideN = 32;     // output channels a block of the wide kernel
-constexpr int kMaxTile = 32;   // columns of a tile, a lane of the copy warp each
-constexpr int kTail = 4;       // zero rows after a stage's columns
-constexpr int kNoCol = 63;     // column of an item past the tile
+// ------------------------------------------------------------- bf16, wide
 
-// channel pitch CP -> k16 steps of K = 3*CP (CP = 8 pads 24 to 32) and
-// bytes of a staged row
-template <int CP>
-struct Geo {
-  static constexpr int kSteps = (3 * CP + 15) / 16;
-  static constexpr int kPad = 16 * kSteps;
-  static constexpr int kPitch = 2 * CP;
+// Past 32 channels in or out (CP 32, 64 or 128; Cout up to 128).  A block
+// computes every output channel of its tile, in 64-channel groups (NG of
+// them, one block row of the grid per NG groups), so a tap's source rows
+// cross into shared memory once a tile.
+namespace wide {
+
+using tc::bulk_copy;
+using tc::ldmatrix_x4;
+using tc::mbar_init;
+using tc::mbar_wait;
+using tc::mma_bf16;
+using tc::smem_u32;
+
+constexpr int kWarps = 8;            // every warp copies and multiplies
+constexpr int kThreads = 32 * kWarps;
+constexpr int kFrags = 3;            // m16 fragments a warp owns in a tile
+constexpr int kMaxTile = 48;         // columns of a tile
+constexpr int kMaxItems = kWarps * kFrags * 16;
+constexpr int kCopyBytes = 16384;    // bytes of one bulk copy of a slab
+constexpr int kMaxMaskZ = 32;        // z of the rows' activity masks
+
+// A configuration: channel pitch CP, NG groups of 64 output channels, TZS
+// z taps a substep (3: a whole tap, 1: one z tap), a ring of SLOTS
+// substeps' weights and kRowBufs taps' rows.
+template <int CP, int NG, int TZS, int SLOTS>
+struct Cfg {
+  static constexpr int kRow = 2 * CP;              // bytes of a staged row
+  static constexpr int kSteps = TZS * CP / 16;     // k16 steps a substep
+  static constexpr int kSlab = TZS * CP * 64 * NG * 2;  // B bytes a substep
+  static constexpr int kPerTap = 3 / TZS;          // substeps a tap
+  static constexpr int kSubsteps = kTaps * kPerTap;  // a tile
+  static constexpr int kAhead = SLOTS - 1;         // substeps in flight
+  // row buffers: a tap's rows go out kAhead substeps before its first
+  // and are read until its last
+  static constexpr int kRowBufs = (kAhead + 2 * kPerTap - 1) / kPerTap;
+  static size_t smem_bytes(int tile, int nz) {
+    return static_cast<size_t>(SLOTS) * kSlab +
+           static_cast<size_t>(kRowBufs) * tile * nz * kRow + kRow +
+           8 * SLOTS + 4 * (4 * kTaps * kMaxTile + kMaxItems);
+  }
 };
-// m16 fragments a consumer warp owns in a tile: 48 accumulators a thread
-template <int NT>
-__host__ __device__ constexpr int frags_per_warp() { return 12 / NT; }
+// the configuration of a width: whole taps where a tap's B (3*CP x 64*NG)
+// is at most 24 KB, else one z tap a substep; a ring of 4 slabs up to 16
+// KB, else 3
+template <int CP, int NG>
+struct Pick {
+  static constexpr int kTZS = CP * NG <= 64 ? 3 : 1;
+  static constexpr int kSlots = kTZS == 1 && CP * NG <= 128 ? 4 : 3;
+  using C = Cfg<CP, NG, kTZS, kSlots>;
+};
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count));
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+// bytes that bulk copies will bring to bar, without an arrival
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::
                    "r"(bar),
                "r"(bytes)
                : "memory");
 }
-// bytes (a multiple of 16) from global src to shared dst by the copy
-// engine; they count against bar's expected transaction bytes
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
 }
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
+// this thread's arrival on bar, made when its cp.async copies so far land
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(bar)
+               : "memory");
 }
-__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// 16-byte chunk j of staged row r lies at chunk j ^ swizzle(r): the 8 rows
+// of an ldmatrix (8 neighbouring columns at one z, rows nz apart, nz odd)
+// then fall in 8 different 16-byte bank groups
+template <int CP>
+__device__ __forceinline__ int swizzle(int r) {
+  return CP == 32 ? (r >> 1) & 3 : r & 7;
 }
 
-template <bool W>
-__host__ __device__ constexpr int ring_steps() {
-  return W ? kStagesWide : kStages;
-}
-template <int CP>
-__host__ __device__ constexpr size_t stage_bytes(int tile, int nz) {
-  return static_cast<size_t>(tile * (nz + 2) + kTail) * Geo<CP>::kPitch;
-}
-// bytes of one tap's B fragments for kWideN output channels (wide kernel)
-template <int CP>
-__host__ __device__ constexpr size_t tap_b_bytes() {
-  return static_cast<size_t>(Geo<CP>::kPad) * kWideN * 2;
-}
-// bytes of one ring step: its staged rows, and in the wide kernel its B
-template <int CP, bool W>
-__host__ __device__ constexpr size_t step_bytes(int tile, int nz) {
-  return stage_bytes<CP>(tile, nz) + (W ? tap_b_bytes<CP>() : 0);
-}
-template <int CP, int NT, bool W>
-__host__ __device__ constexpr size_t smem_bytes(int tile, int nz) {
-  return (W ? 0 : static_cast<size_t>(kTaps) * Geo<CP>::kPad * 8 * NT * 2) +
-         ring_steps<W>() * (step_bytes<CP, W>(tile, nz) + 16 + 4) +
-         4 * kConsumers * (frags_per_warp<NT>() + 1);
+// whether z row z (>= 0) of a tap's source row is staged and read, for
+// the row's mask m: 0 where the tap is not taken, all ones where no masks
+// are kept (nz past kMaxMaskZ), and then any of its bits stands for every
+// z (the shift wraps at kMaxMaskZ = 32, the mask's width)
+__device__ __forceinline__ bool row_live(uint32_t m, int z) {
+  return (m >> (z & (kMaxMaskZ - 1))) & 1u;
 }
 
-// Shared memory:
-//   w_s    [9][kSteps][NT/2][32 lanes] uint4: a lane's B fragments (b0, b1)
-//          of n-tiles 2p and 2p + 1 for one tap and k16 step
-//   rows   [kStages][tile * (nz + 2) + kTail][2*CP bytes]: a step's staged
-//          source columns, row c*(nz + 2) + 1 + z for input z of column c
-//          (a column's nz rows are contiguous, as in feats); rows
-//          c*(nz + 2) and c*(nz + 2) + nz + 1 (the z halo) and the tail stay
-//          zero (a column whose tap is not found is read as the tail)
-//   full_s, empty_s [kStages] mbarriers: a step's rows have landed (the
-//          copy warp's arrive and the bulk copies' bytes); the consumer
-//          warps are done with a buffer (one arrive a warp)
-//   found_s [kStages] uint32: bit c set where column c's tap is found
-//   arow_s [kConsumerWarps][kFrags][32] int: of each lane's ldmatrix row
-//          item (c, zo), c << 16 | the staged row of its input z = zo - 1,
-//          c*(nz + 2) + zo (past the tile's items: kNoCol << 16 | the tail)
-//   fmask_s [kConsumerWarps][kFrags] uint32: the columns a fragment's
-//          items lie in
+// masks[row] of the source rows (R, nz*CP): bit z where z row z is not
+// all zero (nz <= kMaxMaskZ)
+__global__ void __launch_bounds__(256)
+row_masks(const __nv_bfloat16* __restrict__ feats, uint32_t* __restrict__ masks,
+          int n_rows, int nz, int cp) {
+  const int row = blockIdx.x * 256 + threadIdx.x;
+  if (row >= n_rows) return;
+  const uint4* p =
+      reinterpret_cast<const uint4*>(feats) + static_cast<size_t>(row) * nz *
+                                                  (cp / 8);
+  uint32_t m = 0;
+  for (int z = 0; z < nz; ++z) {
+    uint32_t any = 0;
+    for (int q = 0; q < cp / 8; ++q) {
+      const uint4 x = __ldg(p + z * (cp / 8) + q);
+      any |= x.x | x.y | x.z | x.w;
+    }
+    m |= (any != 0u) << z;
+  }
+  masks[row] = m;
+}
+
+// A tile of `tile` columns has n_items = tile*nz items (c, zo), numbered
+// z-major, zo*tile + c, so a fragment's 16 items are neighbouring columns
+// at one z, whose inputs at a z tap are inactive together more often than
+// a column's z are; warp w owns output channels
+// 64*(w % NG) .. + 63 (8 n-tiles) of fragments mg, mg + MG, mg + 2*MG
+// (MG = 8 / NG, mg = w / NG), each 16 items.  The tile's work is 27 / TZS
+// substeps (tap k, z taps tz0 .. tz0 + TZS - 1), K = TZS*CP each.
 //
-// W (wide, Cin or Cout past 32; CP 32, 64 or 128, NT 4): no w_s.  Block
-// (x, y) computes output channels kWideN*y .. kWideN*y + 31, and each ring
-// step carries, after its rows, its tap's B fragments for those channels
-// (tap_b_bytes, in w_s's order, one bulk copy by the copy warp's lane 0
-// from wk as the wrapper's wide_tap_weights lays it out); the ring has
-// kStagesWide steps.
-template <int CP, int NT, bool W>
-__global__ void __launch_bounds__(kThreads)
+// Shared memory:
+//   slabs [SLOTS][TZS*CP/16][NG*4][32 lanes] uint4: a substep's B
+//         fragments, lane l's (b0, b1) of n-tiles 2p and 2p + 1 (the
+//         wrapper's wide_tap_weights, one contiguous slab a substep)
+//   rows  [kRowBufs][n_items][2*CP bytes]: a tap's active source rows, row
+//         c*nz + z holding input z of column c's source (chunks swizzled),
+//         so item (c, zo)'s input z = zo + tz - 1 is row c*nz + z.  A row
+//         whose bit is clear (not found, or all zero) is not copied and
+//         never read: a lane whose row is clear, or whose z leaves the
+//         column, reads the zero row, and a fragment with no set row at a
+//         z tap skips it.
+//   zero  [2*CP bytes] zeros
+//   full  [SLOTS] mbarriers: a substep's slab (and at a tap's first
+//         substep the tap's rows) have landed; every thread arrives once
+//         a use, when its cp.async copies land
+//   src_s, zm_s [2][9][kMaxTile]: each column's source row of each tap
+//         and that row's activity mask (0 where the tap is not taken), of
+//         this tile and the next
+//   col_s [n_items] int: the column of each staged row
+//
+// The ring: after one block barrier a substep (substep s - 1 is read),
+// every thread issues its share of substep s + kAhead's copies (the slab
+// in 16 KB bulk copies, the active rows 16 bytes a cp.async), then every
+// warp works on substep s.
+template <int CP, int NG, int TZS, int SLOTS>
+__global__ void __launch_bounds__(kThreads, 1)
 winfuse_kernel(const __nv_bfloat16* __restrict__ feats,
                const int* __restrict__ src,
+               const uint32_t* __restrict__ masks,
                const __nv_bfloat16* __restrict__ wk,
                __nv_bfloat16* __restrict__ out, int n_out, int nz, int cout,
-               int tile_log2) {
-  using G = Geo<CP>;
-  constexpr int kSteps = G::kSteps;
-  constexpr int kPitch = G::kPitch;
-  constexpr int kFrags = frags_per_warp<NT>();
-  constexpr int kRing = ring_steps<W>();
-  const int tile = 1 << tile_log2;
+               int tile) {
+  using C = Cfg<CP, NG, TZS, SLOTS>;
+  constexpr int kMG = kWarps / NG;
+  constexpr int kTapSteps = CP / 16;  // k16 steps of one z tap
+  constexpr int kPieces = CP / 8;     // 16-byte pieces of a row
   extern __shared__ uint4 smem[];
-  uint4* w_s = smem;
-  const int w_vecs = W ? 0 : kTaps * kSteps * (NT / 2) * 32;
-  unsigned char* rows = reinterpret_cast<unsigned char*>(w_s + w_vecs);
-  const size_t stage = stage_bytes<CP>(tile, nz);
-  const size_t step = step_bytes<CP, W>(tile, nz);
-  uint64_t* bars = reinterpret_cast<uint64_t*>(rows + kRing * step);
-  uint32_t* found_s = reinterpret_cast<uint32_t*>(bars + 2 * kRing);
-  int* arow_s = reinterpret_cast<int*>(found_s + kRing);
-  uint32_t* fmask_s =
-      reinterpret_cast<uint32_t*>(arow_s + kConsumers * kFrags);
-  const uint32_t rows_u32 = smem_u32(rows);
-  const uint32_t full_u32 = smem_u32(bars);
-  const uint32_t empty_u32 = full_u32 + 8 * kRing;
+  unsigned char* slabs = reinterpret_cast<unsigned char*>(smem);
+  const int n_items = tile * nz;
+  const int rows_bytes = n_items * C::kRow;
+  unsigned char* rows = slabs + SLOTS * C::kSlab;
+  unsigned char* zero = rows + C::kRowBufs * rows_bytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(zero + C::kRow);
+  int* src_s = reinterpret_cast<int*>(full + SLOTS);
+  uint32_t* zm_s = reinterpret_cast<uint32_t*>(src_s + 2 * kTaps * kMaxTile);
+  int* col_s = reinterpret_cast<int*>(zm_s + 2 * kTaps * kMaxTile);
+  const uint32_t full_u32 = smem_u32(full);
 
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
-  const int n_items = tile * nz;
+  const int ng = warp % NG, mg = warp / NG;
+  const int j0 = 64 * (NG * blockIdx.y + ng);
+  const char* wk_chunk =
+      reinterpret_cast<const char*>(wk) +
+      static_cast<size_t>(blockIdx.y) * C::kSubsteps * C::kSlab;
   const int n_tiles = (n_out + tile - 1) / tile;
   const int my_tiles = blockIdx.x < n_tiles
       ? (n_tiles - blockIdx.x + gridDim.x - 1) / gridDim.x : 0;
+  const int total = my_tiles * C::kSubsteps;
+  const bool masked = nz <= kMaxMaskZ;
 
-  // items run column-major, item i = c*nz + zo for output z zo of column c
-  // (straight across column boundaries), fragment f of consumer warp w
-  // holds items 16*(w + kConsumerWarps*f) .. + 15
-  for (int e = tid; e < kConsumers * kFrags; e += kThreads) {
-    const int first = 16 * (e / 32);  // fragment e/32 = w + kConsumerWarps*f
-    const int ln = e % 32;
-    const int it = first + ln % 8 + 8 * ((ln / 8) % 2);  // ldmatrix row
-    const int w = (e / 32) % kConsumerWarps, f = (e / 32) / kConsumerWarps;
-    arow_s[(w * kFrags + f) * 32 + ln] =
-        it < n_items ? (it / nz) << 16 | ((it / nz) * (nz + 2) + it % nz)
-                     : kNoCol << 16 | (tile * (nz + 2));
-    if (ln == 0) {
-      uint32_t m = 0;
-      if (first < n_items)
-        for (int c = first / nz; c <= min(first + 15, n_items - 1) / nz; ++c)
-          m |= 1u << c;
-      fmask_s[w * kFrags + f] = m;
-    }
-  }
-
-  // B fragments of every tap, staged once (the wide kernel's come with
-  // each step).  Lane l's fragment of n-tile nt
-  // and k16 step ks holds b0 = B[k0, k0 + 1][n], b1 = B[k0 + 8, k0 + 9][n]
-  // with k0 = 16*ks + 2*(l % 4), n = 8*nt + l/4.  wk is read 16 bytes (8 n
-  // values of one K row) a load and each value put in its place.
-  if constexpr (!W) {
-    __nv_bfloat16* wb = reinterpret_cast<__nv_bfloat16*>(w_s);
-    for (int e = tid; e < kTaps * G::kPad * NT; e += kThreads) {
-      const uint4 v = __ldg(reinterpret_cast<const uint4*>(wk) + e);
-      const __nv_bfloat16* vals = reinterpret_cast<const __nv_bfloat16*>(&v);
-      const int nt = e % NT;
-      const int kr = e / NT;  // row tap*kPad + kk of wk
-      const int kk = kr % G::kPad;
-      const int kin = kk % 16;
-      const int frag =
-          ((kr / G::kPad * kSteps + kk / 16) * (NT / 2) + nt / 2) * 32;
-      const int word = (nt % 2) * 2 + kin / 8;  // b0 / b1 of n-tile nt
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const int ln = frag + 4 * c + (kin % 8) / 2;
-        wb[(ln * 4 + word) * 2 + kin % 2] = vals[c];
-      }
-    }
-  }
-  // every staged row zero, so every column of every stage starts zero
-  for (int e = tid; e < kRing * static_cast<int>(step / 16); e += kThreads)
-    reinterpret_cast<uint4*>(rows)[e] = make_uint4(0, 0, 0, 0);
-  if (tid < kRing) {
-    mbar_init(full_u32 + 8 * tid, 1);
-    mbar_init(empty_u32 + 8 * tid, kConsumerWarps);
-  }
+  for (int e = tid; e < C::kRow / 16; e += kThreads)
+    reinterpret_cast<uint4*>(zero)[e] = make_uint4(0, 0, 0, 0);
+  for (int e = tid; e < n_items; e += kThreads) col_s[e] = e / nz;
+  if (tid < SLOTS) mbar_init(full_u32 + 8 * tid, kThreads);
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  __syncthreads();
-
-  if (warp == kConsumerWarps) {
-    // ---- the copy warp: lane c stages column c of every step, its fused
-    // row (nz z rows, contiguous in feats and in the buffer) in one bulk
-    // copy.  A column whose tap is not found keeps stale rows: the
-    // consumers read the zero tail in its place.
-    const uint32_t row_bytes = nz * kPitch;
-    const uint32_t b_bytes = W ? tap_b_bytes<CP>() : 0;
-    // this block's output channels' B fragments, tap after tap
-    const char* wk_chunk = reinterpret_cast<const char*>(wk) +
-                           static_cast<size_t>(blockIdx.y) * kTaps * b_bytes;
-    const bool mine = lane < tile;
-    int cur[kTaps], nxt[kTaps];
-    int s = 0;
-    for (int lt = 0; lt <= my_tiles; ++lt) {
-      // the next tile's sources are in flight while this tile's taps go out
+  // this lane's ldmatrix item of fragment f (item 16*(mg + MG*f) + lane %
+  // 8 + 8*((lane / 8) % 2), its k half lane / 16): c << 16 | zo, or -1
+  // past the tile
+  int fi[kFrags];
 #pragma unroll
-      for (int k = 0; k < kTaps; ++k) cur[k] = nxt[k];
-      const int v = (blockIdx.x + lt * gridDim.x) * tile + lane;
-      const bool in = mine && lt < my_tiles && v < n_out;
-#pragma unroll
-      for (int k = 0; k < kTaps; ++k)
-        nxt[k] = in ? __ldg(src + static_cast<size_t>(k) * n_out + v) : -1;
-      if (lt == 0) continue;
-#pragma unroll
-      for (int k = 0; k < kTaps; ++k, ++s) {
-        const int b = s % kRing;
-        mbar_wait(empty_u32 + 8 * b, ((s / kRing) & 1) ^ 1);
-        const int from = cur[k];
-        const uint32_t base = rows_u32 + b * step;
-        // the found bits and the copies' bytes, then the copies
-        const uint32_t found = __ballot_sync(0xffffffffu, from >= 0);
-        __syncwarp();
-        if (lane == 0) {
-          found_s[b] = found;
-          mbar_arrive_tx(full_u32 + 8 * b,
-                         __popc(found) * row_bytes + b_bytes);
-        }
-        __syncwarp();
-        if (from >= 0)
-          bulk_copy(base + (lane * (nz + 2) + 1) * kPitch,
-                    feats + static_cast<size_t>(from) * nz * CP, row_bytes,
-                    full_u32 + 8 * b);
-        if (W && lane == 0)
-          bulk_copy(base + static_cast<uint32_t>(stage),
-                    wk_chunk + static_cast<size_t>(k) * b_bytes, b_bytes,
-                    full_u32 + 8 * b);
+  for (int f = 0; f < kFrags; ++f) {
+    const int it = 16 * (mg + kMG * f) + lane % 8 + 8 * ((lane / 8) % 2);
+    fi[f] = it < n_items ? (it % tile) << 16 | (it / tile) : -1;
+  }
+  // tile lt's source rows (-1: tap not taken, or past the columns) and
+  // their masks (every z where no mask is kept)
+  auto load_src = [&](int lt) {
+    if (lt >= my_tiles) return;
+    const int v0 = (blockIdx.x + lt * gridDim.x) * tile;
+    const int at = (lt & 1) * kTaps * kMaxTile;
+    for (int e = tid; e < kTaps * tile; e += kThreads) {
+      const int k = e / tile, c = e - k * tile;
+      const int s = v0 + c < n_out
+          ? __ldg(src + static_cast<size_t>(k) * n_out + v0 + c) : -1;
+      src_s[at + k * kMaxTile + c] = s;
+      zm_s[at + k * kMaxTile + c] =
+          s < 0 ? 0u : masked ? __ldg(masks + s) : 0xffffffffu;
+    }
+  };
+  // substep s's slab into slot s % SLOTS and, at its tap's first
+  // substep, the tap's active rows into rows buffer tap % kRowBufs, both
+  // on the slot's mbarrier
+  auto issue = [&](int s) {
+    if (s >= total) return;
+    const int lt = s / C::kSubsteps, ks = s - lt * C::kSubsteps;
+    const uint32_t bar = full_u32 + 8 * (s % SLOTS);
+    if (WINFUSE_WIDE_PART != 2 && tid * kCopyBytes < C::kSlab) {
+      const int bytes = min(kCopyBytes, C::kSlab - tid * kCopyBytes);
+      mbar_expect_tx(bar, bytes);
+      // the block's reads of the slot come before the copy engine's writes
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      bulk_copy(smem_u32(slabs + (s % SLOTS) * C::kSlab) + tid * kCopyBytes,
+                wk_chunk + static_cast<size_t>(ks) * C::kSlab +
+                    tid * kCopyBytes,
+                bytes, bar);
+    }
+    if (WINFUSE_WIDE_PART != 2 && ks % C::kPerTap == 0) {
+      const int at = ((lt & 1) * kTaps + ks / C::kPerTap) * kMaxTile;
+      const uint32_t buf =
+          smem_u32(rows + ((s / C::kPerTap) % C::kRowBufs) * rows_bytes);
+      for (int e = tid; e < n_items * kPieces; e += kThreads) {
+        const int r = e / kPieces, piece = e - r * kPieces;
+        const int c = col_s[r], z = r - c * nz;
+        if (row_live(zm_s[at + c], z))
+          cp_async16(buf + r * C::kRow + 16 * (piece ^ swizzle<CP>(r)),
+                     feats + (static_cast<size_t>(src_s[at + c]) * nz + z) *
+                                 CP + 8 * piece);
       }
     }
-    return;
-  }
+    cp_async_arrive(bar);
+  };
 
-  // ---- consumers
-  const int g = lane / 4, q = lane % 4;
-  float acc[kFrags][NT][4];
+  float acc[kFrags][8][4];
 #pragma unroll
   for (int f = 0; f < kFrags; ++f)
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
+    for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
       for (int r = 0; r < 4; ++r) acc[f][nt][r] = 0.f;
 
-  int s = 0;
-  for (int lt = 0; lt < my_tiles; ++lt) {
-    for (int k = 0; k < kTaps; ++k, ++s) {
-      const int b = s % kRing;
-      mbar_wait(full_u32 + 8 * b, (s / kRing) & 1);
-      const uint32_t bits = found_s[b];
-      // the fragments with a found column (the others add nothing)
+  load_src(0);
+  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < C::kAhead; ++s) issue(s);
+  const uint32_t zero_u32 = smem_u32(zero);
+  for (int s = 0; s < total; ++s) {
+    const int lt = s / C::kSubsteps, ks = s - lt * C::kSubsteps;
+    const int k = ks / C::kPerTap, tz0 = TZS * (ks - k * C::kPerTap);
+    mbar_wait(full_u32 + 8 * (s % SLOTS), (s / SLOTS) & 1);
+    __syncthreads();  // substep s - 1 is read by every warp
+    if (ks == 0) load_src(lt + 1);
+    issue(s + C::kAhead);
+
+    const uint32_t* zm = zm_s + ((lt & 1) * kTaps + k) * kMaxTile;
+    const uint32_t base =
+        smem_u32(rows + ((s / C::kPerTap) % C::kRowBufs) * rows_bytes);
+    const uint4* bw = reinterpret_cast<const uint4*>(
+                          slabs + (s % SLOTS) * C::kSlab) +
+                      ng * 4 * 32 + lane;
+#pragma unroll
+    for (int t = 0; t < TZS; ++t) {
+      if (WINFUSE_WIDE_PART == 1) break;
+      const int tz = tz0 + t;
+      // this lane's row of each fragment at z tap tz and its swizzle, and
+      // the fragments with a set row
+      uint32_t arow[kFrags];
+      int sw[kFrags];
       uint32_t live = 0;
 #pragma unroll
-      for (int f = 0; f < kFrags; ++f)
-        if (bits & fmask_s[warp * kFrags + f]) live |= 1u << f;
-      if (live) {
-        const uint32_t base = rows_u32 + b * step;
-        const uint32_t tail = base + tile * (nz + 2) * kPitch;
-        // this lane's row of each live fragment: its item's staged rows, or
-        // the zero tail where the item's column has no found tap
-        uint32_t row[kFrags];
+      for (int f = 0; f < kFrags; ++f) {
+        const int c = fi[f] >> 16, zo = fi[f] & 0xffff;
+        const int z = zo + tz - 1;  // input z
+        const int r = c * nz + z;   // its staged row
+        const bool ok =
+            fi[f] >= 0 && z >= 0 && z < nz && row_live(zm[c], z);
+        arow[f] = ok ? base + r * C::kRow : zero_u32;
+        sw[f] = swizzle<CP>(r);
+        live |= static_cast<uint32_t>(__any_sync(0xffffffffu, ok)) << f;
+      }
+      if (!live) continue;
+      uint4 bq[2][4];
+      uint32_t a[2][kFrags][4];
+      auto load = [&](int kk, int slot) {
+#pragma unroll
+        for (int p = 0; p < 4; ++p)
+          bq[slot][p] = bw[((t * kTapSteps + kk) * NG * 4 + p) * 32];
+#pragma unroll
+        for (int f = 0; f < kFrags; ++f)
+          if ((live >> f) & 1)
+            ldmatrix_x4(arow[f] + 16 * ((2 * kk + lane / 16) ^ sw[f]),
+                        a[slot][f]);
+      };
+      load(0, 0);
+#pragma unroll
+      for (int kk = 0; kk < kTapSteps; ++kk) {
+        if (kk + 1 < kTapSteps) load(kk + 1, (kk + 1) % 2);
 #pragma unroll
         for (int f = 0; f < kFrags; ++f) {
-          const int e = arow_s[(warp * kFrags + f) * 32 + lane];
-          const int c = e >> 16;
-          row[f] = c < kMaxTile && ((bits >> c) & 1)
-                       ? base + (e & 0xffff) * kPitch
-                       : tail;
-        }
-        const uint4* wt =
-            (W ? reinterpret_cast<const uint4*>(rows + b * step + stage)
-               : w_s + k * kSteps * (NT / 2) * 32) +
-            lane;
-        // the fragments of k16 step ks: B for two n-tiles a uint4, and A
-        // of each live fragment; this lane's 8-value chunk of K is staged
-        // row + kk / CP, chunk (kk % CP) / 8 (past 3*CP, CP = 8: zeros)
-        uint4 bq[2][NT / 2];
-        uint32_t a[2][kFrags][4];
-        auto load = [&](int ks, int slot) {
+          if (!((live >> f) & 1)) continue;
 #pragma unroll
-          for (int p = 0; p < NT / 2; ++p)
-            bq[slot][p] = wt[(ks * (NT / 2) + p) * 32];
-          const int kk = 16 * ks + 8 * (lane / 16);
-          const uint32_t off =
-              kk < 3 * CP ? (kk / CP) * kPitch + ((kk % CP) / 8) * 16 : 0;
-#pragma unroll
-          for (int f = 0; f < kFrags; ++f)
-            if ((live >> f) & 1) {
-              ldmatrix_x4(row[f] + off, a[slot][f]);
-              if (16 * ks + 8 >= 3 * CP) a[slot][f][2] = a[slot][f][3] = 0u;
-            }
-        };
-        load(0, 0);
-#pragma unroll
-        for (int ks = 0; ks < kSteps; ++ks) {
-          if (ks + 1 < kSteps) load(ks + 1, (ks + 1) % 2);
-#pragma unroll
-          for (int f = 0; f < kFrags; ++f) {
-            if (!((live >> f) & 1)) continue;
-#pragma unroll
-            for (int nt = 0; nt < NT; ++nt) {
-              const uint4& bb = bq[ks % 2][nt / 2];
-              mma_bf16(acc[f][nt], a[ks % 2][f], nt % 2 ? bb.z : bb.x,
-                       nt % 2 ? bb.w : bb.y);
-            }
+          for (int nt = 0; nt < 8; ++nt) {
+            const uint4& bb = bq[kk % 2][nt / 2];
+            mma_bf16(acc[f][nt], a[kk % 2][f], nt % 2 ? bb.z : bb.x,
+                     nt % 2 ? bb.w : bb.y);
           }
         }
       }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty_u32 + 8 * b);
     }
-    // the tile's outputs, every item
-    const int v0 = (blockIdx.x + lt * gridDim.x) * tile;
-    const int j0 = W ? kWideN * blockIdx.y : 0;
+    if (ks == C::kSubsteps - 1) {
+      // the tile's outputs, every item, rounded once to bf16
+      const int v0 = (blockIdx.x + lt * gridDim.x) * tile;
+      const int g = lane / 4, q = lane % 4;
 #pragma unroll
-    for (int f = 0; f < kFrags; ++f) {
+      for (int f = 0; f < kFrags; ++f) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int it = 16 * (warp + kConsumerWarps * f) + g + 8 * h;
-        if (it >= n_items || v0 + it / nz >= n_out) continue;
-        __nv_bfloat16* o = out + (static_cast<size_t>(v0) * nz + it) * cout;
+        for (int h = 0; h < 2; ++h) {
+          const int it = 16 * (mg + kMG * f) + g + 8 * h;
+          const int c = it % tile;
+          if (it >= n_items || v0 + c >= n_out) continue;
+          __nv_bfloat16* o =
+              out + ((static_cast<size_t>(v0) + c) * nz + it / tile) * cout;
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const int jj = j0 + 8 * nt + 2 * q;
-          const float x0 = acc[f][nt][2 * h], x1 = acc[f][nt][2 * h + 1];
-          if (jj + 1 < cout && cout % 2 == 0) {
-            *reinterpret_cast<__nv_bfloat162*>(o + jj) =
-                __floats2bfloat162_rn(x0, x1);
-          } else {
-            if (jj < cout) o[jj] = __float2bfloat16(x0);
-            if (jj + 1 < cout) o[jj + 1] = __float2bfloat16(x1);
+          for (int nt = 0; nt < 8; ++nt) {
+            const int jj = j0 + 8 * nt + 2 * q;
+            const float x0 = acc[f][nt][2 * h], x1 = acc[f][nt][2 * h + 1];
+            if (jj + 1 < cout && cout % 2 == 0) {
+              *reinterpret_cast<__nv_bfloat162*>(o + jj) =
+                  __floats2bfloat162_rn(x0, x1);
+            } else {
+              if (jj < cout) o[jj] = __float2bfloat16(x0);
+              if (jj + 1 < cout) o[jj + 1] = __float2bfloat16(x1);
+            }
           }
         }
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[f][nt][r] = 0.f;
       }
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) acc[f][nt][r] = 0.f;
     }
   }
 }
 
-// columns of a tile: the most (a power of 2, <= kMaxTile) whose items fit
-// the consumers' fragments and whose ring fits in shared memory
-template <int CP, int NT, bool W>
-int tile_columns(int nz) {
-  int tile = kMaxTile;
-  while (tile > 1 &&
-         ((tile * nz + 15) / 16 > kConsumerWarps * frags_per_warp<NT>() ||
-          smem_bytes<CP, NT, W>(tile, nz) > kMaxSmem))
-    tile /= 2;
-  return tile;
-}
+// output-channel groups of 64 a block computes: 2 where Cout passes 64
+// and a tile's items still fill fragments of half the warps (nz <= 128;
+// the wrapper's wide_groups keeps the same rule)
+inline int groups(int cout, int nz) { return cout > 64 && nz <= 128 ? 2 : 1; }
 
-template <int CP, int NT, bool W = false>
-cudaError_t launch(const void* feats, const int* src, const void* wk,
-                   void* out, int n_out, int nz, int cout, int sms,
-                   cudaStream_t stream) {
-  const int tile = tile_columns<CP, NT, W>(nz);
-  int tile_log2 = 0;
-  while ((1 << tile_log2) < tile) ++tile_log2;
-  const size_t smem = smem_bytes<CP, NT, W>(tile, nz);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+template <int CP, int NG>
+cudaError_t launch(const void* feats, const int* src, uint32_t* masks,
+                   int n_rows, const void* wk, void* out, int n_out, int nz,
+                   int cout, int sms, cudaStream_t stream) {
+  using P = Pick<CP, NG>;
+  using C = typename P::C;
+  const auto kernel = winfuse_kernel<CP, NG, P::kTZS, P::kSlots>;
+  // columns of a tile: the most (<= kMaxTile) whose items fit the warps'
+  // fragments and whose buffers fit in shared memory
+  int tile = (kWarps / NG) * kFrags * 16 / nz;
+  if (tile > kMaxTile) tile = kMaxTile;
+  while (tile > 0 && C::smem_bytes(tile, nz) > kMaxSmem) --tile;
+  if (tile < 1) return cudaErrorInvalidValue;
+  const size_t smem = C::smem_bytes(tile, nz);
   cudaError_t err = cudaFuncSetAttribute(
-      winfuse_kernel<CP, NT, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   int per_sm = 0;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, winfuse_kernel<CP, NT, W>, kThreads, smem)) !=
-      cudaSuccess)
+           &per_sm, kernel, kThreads, smem)) != cudaSuccess)
     return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  // the wide kernel: one block row a kWideN-channel chunk of the output
-  const int chunks = W ? (cout + kWideN - 1) / kWideN : 1;
+  if (nz <= kMaxMaskZ && n_rows > 0) {
+    row_masks<<<(n_rows + 255) / 256, 256, 0, stream>>>(
+        static_cast<const __nv_bfloat16*>(feats), masks, n_rows, nz, CP);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  // one block row a chunk of 64*NG output channels
+  const int chunks = (cout + 64 * NG - 1) / (64 * NG);
   const int tiles = (n_out + tile - 1) / tile;
   const int slots = sms * per_sm / chunks > 0 ? sms * per_sm / chunks : 1;
   const int blocks = tiles < slots ? tiles : slots;
-  winfuse_kernel<CP, NT, W><<<dim3(blocks, chunks), kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(feats), src,
+  kernel<<<dim3(blocks, chunks), kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(feats), src, masks,
       static_cast<const __nv_bfloat16*>(wk),
-      static_cast<__nv_bfloat16*>(out), n_out, nz, cout, tile_log2);
+      static_cast<__nv_bfloat16*>(out), n_out, nz, cout, tile);
   return cudaGetLastError();
 }
 
 template <int CP>
-cudaError_t by_cout(const void* feats, const int* src, const void* wk,
-                    void* out, int n_out, int nz, int cout, int sms,
-                    cudaStream_t stream) {
-  if (cout <= 16)
-    return launch<CP, 2>(feats, src, wk, out, n_out, nz, cout, sms, stream);
-  return launch<CP, 4>(feats, src, wk, out, n_out, nz, cout, sms, stream);
+cudaError_t by_groups(const void* feats, const int* src, uint32_t* masks,
+                      int n_rows, const void* wk, void* out, int n_out,
+                      int nz, int cout, int sms, cudaStream_t stream) {
+  if (groups(cout, nz) == 2)
+    return launch<CP, 2>(feats, src, masks, n_rows, wk, out, n_out, nz, cout,
+                         sms, stream);
+  return launch<CP, 1>(feats, src, masks, n_rows, wk, out, n_out, nz, cout,
+                       sms, stream);
 }
 
-}  // namespace tc
+}  // namespace wide
 
 cudaError_t sm_count(int* sms) {
   int device = 0;
@@ -884,14 +894,18 @@ extern "C" int sf_winfuse_fp32(const void* feats, const int* src,
 // 1 <= cout <= 32): wk (9, k_pad, n_pad) bf16 per-tap weights, row
 // tz*cp + i, zero past cin and cout, k_pad = 3*cp rounded up to 16,
 // n_pad = 16 if cout <= 16 else 32.  Wide (cp 64 or 128, or cp 32 with
-// 32 < cout <= 128): wk the B fragments of every 32-channel output chunk
-// and tap in the kernel's order (the wrapper's wide_tap_weights).
+// 32 < cout <= 128): wk the B fragments of every chunk of 64*NG output
+// channels (NG = wide::groups(cout, nz)), tap and z tap in the kernel's
+// order (the wrapper's wide_tap_weights), and masks uint32 scratch of
+// n_rows (feats' rows) for the rows' activity where nz <= 32.  The narrow
+// kernels do not read masks and n_rows.
 extern "C" int sf_winfuse_bf16(const void* feats, const int* src,
                                const void* wk, void* out, int n_out, int nz,
-                               int cp, int cout, void* stream) {
-  const bool wide = cp > 32 || cout > 32;
+                               int cp, int cout, void* masks, int n_rows,
+                               void* stream) {
+  const bool is_wide = cp > 32 || cout > 32;
   if ((cp != 8 && cp != 16 && cp != 32 && cp != 64 && cp != 128) ||
-      (wide && cp < 32) || cout < 1 || cout > 128 || nz < 1 || nz > 256)
+      (is_wide && cp < 32) || cout < 1 || cout > 128 || nz < 1 || nz > 256)
     return static_cast<int>(cudaErrorInvalidValue);
   if (reinterpret_cast<uintptr_t>(feats) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(wk) % 16 != 0)
@@ -901,16 +915,19 @@ extern "C" int sf_winfuse_bf16(const void* feats, const int* src,
   cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (wide) {
+  if (is_wide) {
+    uint32_t* m = static_cast<uint32_t*>(masks);
+    if (m == nullptr && nz <= wide::kMaxMaskZ)
+      return static_cast<int>(cudaErrorInvalidValue);
     if (cp == 32)
-      err = tc::launch<32, 4, true>(feats, src, wk, out, n_out, nz, cout, sms,
-                                    s);
+      err = wide::by_groups<32>(feats, src, m, n_rows, wk, out, n_out, nz,
+                                cout, sms, s);
     else if (cp == 64)
-      err = tc::launch<64, 4, true>(feats, src, wk, out, n_out, nz, cout, sms,
-                                    s);
+      err = wide::by_groups<64>(feats, src, m, n_rows, wk, out, n_out, nz,
+                                cout, sms, s);
     else
-      err = tc::launch<128, 4, true>(feats, src, wk, out, n_out, nz, cout,
-                                     sms, s);
+      err = wide::by_groups<128>(feats, src, m, n_rows, wk, out, n_out, nz,
+                                 cout, sms, s);
   } else if (cp == 8)
     err = tc::by_cout<8>(feats, src, wk, out, n_out, nz, cout, sms, s);
   else if (cp == 16)

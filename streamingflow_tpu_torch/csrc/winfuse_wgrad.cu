@@ -59,11 +59,26 @@
 // fp32 (the exact check path): TF32 would miss the 1e-4 bar, so fp32 keeps
 // the CUDA-core kernel of the first port, below.
 //
-// Past 32 channels in or out (stages 3 and 4 on columns) both kernels split
-// dW into 32 x 32 chunks of (Cin, Cout), one block row of the grid each:
-// the bf16 kernel stages 32-channel slices of the source rows and reads its
-// 32 channels of the staged cotangent rows (whole rows), the fp32 kernel
-// gives its units to the chunk.  The partials still add in block order.
+// Past 32 channels in or out (stages 3 and 4 on columns):
+//   - bf16 (namespace wide): one warp a tap would hold 9 x 384 x 128 fp32
+//     sums at stage 4, so dW is cut into pieces, tap k's rows (tz, i) for
+//     one z tap (three where they fit 64 registers a thread) by every
+//     output channel: 27 pieces at 128 -> 128, 9 at 64 -> 64, one block
+//     row each.  The cotangent is read and its nonzero items listed once,
+//     by wgrad_list (one warp a chunk of columns, into a scratch list), and
+//     a piece's blocks stage only the listed items' cotangent rows and
+//     their source rows for the piece's tap and z taps, once a piece (not
+//     once per 32 x 32 chunk of dW).  Every thread stages its share of a
+//     ring of 3 steps of 64 listed items (cp.async; a piece whose row does
+//     not exist writes zeros: src-size 0), 8 warps each own MTW x NTW
+//     m16n8 tiles of the piece, and both operands come by ldmatrix.trans
+//     from items padded by 16 bytes (8 items of an ldmatrix in 8 bank
+//     groups).  The partials add in block order as before: the same bits
+//     every run.  What bounds it: the listed items' rows from L2, staged
+//     once for each of the 9 or 27 pieces, and one pass over the whole
+//     cotangent for the lists.
+//   - fp32: block (x, y) owns the 32 x 32 chunk y of (Cin, Cout), its units
+//     over that chunk; the partials still add in block order.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -373,308 +388,207 @@ cudaError_t launch(const float* feats, const int* src, const float* g,
 
 // ------------------------------------------------------------------ bf16
 
-namespace tc {
+#include "winfuse_wgrad_tc.cuh"
 
-constexpr int kWarps = kTaps;          // one warp a tap
+// ------------------------------------------------------------- bf16, wide
+
+// Past 32 channels in or out (CP, NP 32, 64 or 128).  The cotangent's
+// nonzero items are listed once, by wgrad_list; then block (x, y) owns
+// one piece of dW, tap k's rows (tz, i) for TZ z taps and every output
+// channel, and walks chunks x, x + X, ... of the listed items, so each
+// source row a piece needs crosses into shared memory once a piece.
+namespace wide {
+
+using tc::cp_async_commit;
+using tc::cp_async_wait;
+using tc::ldmatrix_x4_trans;
+using tc::mma_bf16;
+using tc::smem_u32;
+
+constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kStages = 3;             // a warp's ring of k16 steps
-constexpr int kMaxTv = 64;             // columns a chunk, at most
-constexpr int kZeroBytes = 256;        // the zeroed row every pad lane reads
-constexpr int kCopyBytes = 16384;      // bytes of one bulk copy, at most
-static_assert(kTaps * kMaxTv <= 2 * kThreads, "two map entries a thread");
+constexpr int kStepItems = 64;     // listed items a step: 4 k16 steps
+constexpr int kStages = 3;         // ring of steps
+constexpr int kListItems = 2048;   // items (column, z) of a chunk, at most
 
-// channel pitch CP of the source rows and NP of the cotangent rows ->
-// the GEMM's tiles and a staged item.  An item's 4*(2p + 1) words put the 8
-// rows of an ldmatrix on 8 different 16-byte bank groups.
+// items of a chunk's columns: the most whole columns within kListItems
+inline int chunk_columns(int nz) {
+  return kListItems / nz > 0 ? kListItems / nz : 1;
+}
+
+// CP, NP -> a piece (TZ z taps: all three where the piece's fp32 sums fit
+// 64 registers a thread, else one) and its tiles: 8 warps in a WM x WN
+// grid, each with MTW x NTW m16n8 tiles of the piece's (TZ*CP) x NP
 template <int CP, int NP>
 struct Geo {
-  static constexpr int kM = 3 * CP;              // rows (tz, i) of dW_k
-  static constexpr int kMT = (kM + 15) / 16;     // m16 tiles
-  static constexpr int kNT = NP / 8;             // n8 tiles
-  static constexpr int kRowPieces = CP / 8;      // 16-byte pieces of a z row
-  static constexpr int kPieces = 3 * kRowPieces;  // of an item's 3 rows
-  static constexpr int kAPitch = 6 * CP + ((6 * CP / 4) % 8 == 0 ? 16 : 0);
-  static constexpr int kGRow = 2 * NP;           // bytes of a cotangent row
+  static constexpr int kTZ = 3 * CP * NP <= 64 * 256 ? 3 : 1;
+  static constexpr int kMT = kTZ * CP / 16;
+  static constexpr int kNT = NP / 8;
+  static constexpr int kNTW = kNT < 4 ? kNT : 4;
+  static constexpr int kWN = kNT / kNTW;
+  static constexpr int kWM = kWarps / kWN;
+  static constexpr int kMTW = (kMT + kWM - 1) / kWM;
+  // bytes of a staged item: its TZ source rows, its cotangent row, each
+  // 16 bytes longer (an odd number of 16-byte groups, so the 8 items of an
+  // ldmatrix fall in 8 bank groups)
+  static constexpr int kAPitch = kTZ * 2 * CP + 16;
+  static constexpr int kBPitch = 2 * NP + 16;
+  static constexpr int kStep = kStepItems * (kAPitch + kBPitch);
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count));
-}
-__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-// bytes (a multiple of 16) from global src to shared dst by the copy
-// engine; they count against bar's expected transaction bytes
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr,
-                                                  uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t addr,
-                                                  uint32_t& r0,
-                                                  uint32_t& r1) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(r0), "=r"(r1)
-      : "r"(addr));
-}
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// grow: bytes of a staged cotangent row (G::kGRow, or the wide kernel's
-// whole row)
 template <int CP, int NP>
-__host__ __device__ constexpr size_t smem_bytes(int tv, int nz, int grow) {
-  using G = Geo<CP, NP>;
-  const size_t items = static_cast<size_t>(tv) * nz;
-  const size_t words = (items + 31) / 32;
-  return 2 * items * grow + kWarps * kStages * 16 * G::kAPitch +
-         kZeroBytes + 16 + 4 * (items + 2 * words + kTaps * tv + 1);
+__host__ __device__ constexpr size_t smem_bytes(int tv) {
+  return static_cast<size_t>(kStages) * Geo<CP, NP>::kStep +
+         4 * (static_cast<size_t>(kListItems) + tv);
 }
 
-// Shared memory of a chunk of tv columns:
-//   g_s    [2][tv * nz][2*NP bytes] the cotangent rows of this chunk and of
-//          the next (in flight), item c*nz + zo, as they lie in g
-//   a_s    [9 warps][kStages][16 items][kAPitch bytes] a warp's staged
-//          source rows: item slot e holds rows zo - 1 .. zo + 1 of its
-//          column's source for the warp's tap, (tz, i) at byte 2*(tz*CP + i)
-//   zero_s [kZeroBytes] zeros
-//   full_s [2] mbarriers: a g_s buffer's rows have landed
-//   item_s [tv * nz] the listed items, c << 16 | zo, ascending
-//   mask_s [words] bit l of word w: item 32w + l's row is not all zero
-//   base_s [words] listed items before word w
-//   src_s  [9][tv] the chunk's source row of each tap, -1 if not taken
-//   count_s        the number of listed items
+// 16 bytes from src to shared dst, or 16 zero bytes where !ok (src-size
+// 0: nothing is read)
+__device__ __forceinline__ void cp_async16_or_zero(uint32_t dst,
+                                                   const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+// One warp a chunk of tv columns: the chunk's items (c*nz + zo) whose
+// cotangent row is not all zero (-0 counts as zero), ascending, into
+// lists[chunk * tv * nz ..], their number into counts[chunk].  A row's
+// 16-byte pieces are read by neighbouring lanes.
+__global__ void __launch_bounds__(256)
+wgrad_list(const __nv_bfloat16* __restrict__ g, int* __restrict__ lists,
+           int* __restrict__ counts, int n_out, int nz, int np, int tv) {
+  __shared__ int flags_s[8][32];
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  const int pieces = np / 8;  // of a row
+  const int n_chunks = (n_out + tv - 1) / tv;
+  for (int c = blockIdx.x * 8 + w; c < n_chunks; c += gridDim.x * 8) {
+    const int v0 = c * tv;
+    const int n_items = min(tv, n_out - v0) * nz;
+    const uint4* rows = reinterpret_cast<const uint4*>(g) +
+                        static_cast<size_t>(v0) * nz * pieces;
+    int base = 0;
+    for (int i0 = 0; i0 < n_items; i0 += 32) {
+      flags_s[w][lane] = 0;
+      __syncwarp();
+      const int n = min(32, n_items - i0) * pieces;
+      for (int e = lane; e < n; e += 32) {
+        const uint4 x = __ldg(rows + static_cast<size_t>(i0) * pieces + e);
+        if (((x.x | x.y | x.z | x.w) & 0x7fff7fffu) != 0u)
+          flags_s[w][e / pieces] = 1;
+      }
+      __syncwarp();
+      const bool any = flags_s[w][lane] != 0;
+      const uint32_t m = __ballot_sync(0xffffffffu, any);
+      if (any)
+        lists[static_cast<size_t>(c) * tv * nz + base +
+              __popc(m & ((1u << lane) - 1u))] = i0 + lane;
+      base += __popc(m);
+      __syncwarp();
+    }
+    if (lane == 0) counts[c] = base;
+  }
+}
+
+// Block (x, y): tap k = y / (3 / TZ), z taps tz0 = TZ * (y % (3 / TZ)) ..
+// tz0 + TZ - 1, every output channel; chunks x, x + gridDim.x, ...
 //
-// W (wide, Cin or Cout past 32; CP = NP = 32): the source rows have fpitch
-// channels and the cotangent rows gpitch (32, 64 or 128), and block (x, y)
-// computes the 32 x 32 chunk y of (Cin, Cout) of every tap: chunk
-// y % ceil(Cin / 32) of the source channels, y / ceil(Cin / 32) of the
-// output channels.  g_s holds whole cotangent rows; an item is listed
-// where the block's 32 channels of its row are not all zero.
-template <int CP, int NP, bool W>
-__global__ void __launch_bounds__(kThreads, 1)
+// Shared memory:
+//   ring   [kStages][kStepItems] staged items: a_s [64][kAPitch] (source
+//          rows zo - 1 + tz0 .. + TZ - 1 of the item's column for tap k,
+//          row tz - tz0 at byte 2*CP*(tz - tz0); zeros where the tap is not
+//          found, z leaves the column or the item is past the list), then
+//          b_s [64][kBPitch] (the cotangent row; zeros past the list)
+//   list_s [kListItems] the chunk's listed items, c << 16 | zo
+//   src_s  [tv] the chunk's source row of tap k for each column
+//
+// A step: every thread stages (cp.async) its share of step st + 2, then
+// each warp runs its tiles of dW_k^T += A^T B over the step's 64 items
+// (four k16 steps), A and B both by ldmatrix.trans.  The partial is written at the end: the
+// block's rows of part[x], added in block order by wgrad_reduce.
+template <int CP, int NP>
+__global__ void __launch_bounds__(kThreads, 2)
 wgrad_mma(const __nv_bfloat16* __restrict__ feats,
           const int* __restrict__ src, const __nv_bfloat16* __restrict__ g,
+          const int* __restrict__ lists, const int* __restrict__ counts,
           float* __restrict__ part, int n_out, int nz, int cin, int cout,
-          int tv, int fpitch, int gpitch) {
+          int tv) {
   using G = Geo<CP, NP>;
+  constexpr int kAPieces = G::kTZ * CP / 8;  // 16-byte pieces of an item
+  constexpr int kBPieces = NP / 8;
   extern __shared__ uint4 smem[];
-  const int n_items = tv * nz;
-  const int n_words = (n_items + 31) / 32;
-  // bytes of a cotangent row, channels of a source row, and the block's
-  // first source and output channel
-  const int grow = W ? 2 * gpitch : G::kGRow;
-  const int fp = W ? fpitch : CP;
-  const int a_chunks = W ? (cin + 31) / 32 : 1;
-  const int i0 = W ? 32 * (blockIdx.y % a_chunks) : 0;
-  const int j0 = W ? 32 * (blockIdx.y / a_chunks) : 0;
-  const uint32_t g_bytes = static_cast<uint32_t>(n_items) * grow;
-  unsigned char* g_s = reinterpret_cast<unsigned char*>(smem);
-  unsigned char* a_s = g_s + 2 * static_cast<size_t>(g_bytes);
-  unsigned char* zero_s = a_s + kWarps * kStages * 16 * G::kAPitch;
-  uint64_t* full_s = reinterpret_cast<uint64_t*>(zero_s + kZeroBytes);
-  int* item_s = reinterpret_cast<int*>(full_s + 2);
-  uint32_t* mask_s = reinterpret_cast<uint32_t*>(item_s + n_items);
-  int* base_s = reinterpret_cast<int*>(mask_s + n_words);
-  int* src_s = base_s + n_words;
-  int* count_s = src_s + kTaps * tv;
+  unsigned char* ring = reinterpret_cast<unsigned char*>(smem);
+  int* list_s = reinterpret_cast<int*>(ring + kStages * G::kStep);
+  int* src_s = list_s + kListItems;
+  const uint32_t ring_u32 = smem_u32(ring);
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int k = tid >> 5;  // this warp's in-plane tap
-  const uint32_t g_u32 = smem_u32(g_s);
-  const uint32_t zero_u32 = smem_u32(zero_s);
-  const uint32_t full_u32 = smem_u32(full_s);
-  const uint32_t ring_u32 = smem_u32(a_s) + k * kStages * 16 * G::kAPitch;
-  for (int e = tid; e < kZeroBytes / 16; e += kThreads)
-    reinterpret_cast<uint4*>(zero_s)[e] = make_uint4(0, 0, 0, 0);
-  if (tid < 2) mbar_init(full_u32 + 8 * tid, 1);
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  __syncthreads();
-
-  // chunk c's cotangent rows (one contiguous run of g) into g_s buffer b by
-  // the copy engine, kCopyBytes a copy, one copy a lane of warp 0; and this
-  // thread's entries tid, tid + kThreads of its source rows, read into
-  // registers
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wm = warp % G::kWM, wn = warp / G::kWM;
+  const int k = blockIdx.y / (3 / G::kTZ);
+  const int tz0 = G::kTZ * (blockIdx.y % (3 / G::kTZ));
   const int n_chunks = (n_out + tv - 1) / tv;
-  auto fetch = [&](int c, int b, int (&nxt)[2]) {
-    nxt[0] = nxt[1] = -1;
-    if (c >= n_chunks) return;
-    const int nc = min(tv, n_out - c * tv);
-    if (k == 0) {
-      const uint32_t bytes = static_cast<uint32_t>(nc) * nz * grow;
-      const char* from = reinterpret_cast<const char*>(
-          g + static_cast<size_t>(c) * tv * nz * (W ? gpitch : NP));
-      // the block's reads of this buffer (the chunk before last) come
-      // before the copy engine's writes
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      if (lane == 0) mbar_arrive_tx(full_u32 + 8 * b, bytes);
-      __syncwarp();
-      for (uint32_t off = lane * kCopyBytes; off < bytes;
-           off += 32 * kCopyBytes)
-        bulk_copy(g_u32 + b * g_bytes + off, from + off,
-                  min(bytes - off, static_cast<uint32_t>(kCopyBytes)),
-                  full_u32 + 8 * b);
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int e = tid + r * kThreads;
-      const int kk = e / tv, cc = e - kk * tv;
-      if (e < kTaps * tv && cc < nc)
-        nxt[r] = __ldg(src + static_cast<size_t>(kk) * n_out + c * tv + cc);
-    }
-  };
 
-  float acc[G::kMT][G::kNT][4];
+  float acc[G::kMTW][G::kNTW][4];
 #pragma unroll
-  for (int mt = 0; mt < G::kMT; ++mt)
+  for (int t = 0; t < G::kMTW; ++t)
 #pragma unroll
-    for (int nt = 0; nt < G::kNT; ++nt)
+    for (int u = 0; u < G::kNTW; ++u)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) acc[mt][nt][r] = 0.f;
+      for (int r = 0; r < 4; ++r) acc[t][u][r] = 0.f;
 
-  // this lane's ldmatrix rows in a k16 step: A's item (matrices 0, 1: items
-  // 0-7, 2, 3: items 8-15) and channel half (matrices 1, 3: + 8); B's item
-  // (matrices 0, 2: items 0-7, 1, 3: items 8-15) and output-channel half
-  // (matrices 2, 3: + 8)
+  // this lane's ldmatrix rows (as csrc's narrow kernel): A's item and
+  // channel half, B's item and output-channel half
   const int ia = (lane & 7) + ((lane >> 4) << 3);
   const int ca = 8 * ((lane >> 3) & 1);
   const int ib = (lane & 7) + (((lane >> 3) & 1) << 3);
   const int jb = 8 * (lane >> 4);
-  const int* my_src = src_s + k * tv;
-  int src_next[2];
-  fetch(blockIdx.x, 0, src_next);
-  for (int chunk = blockIdx.x, li = 0; chunk < n_chunks;
-       chunk += gridDim.x, ++li) {
-    const int b = li & 1;
-    const int nc = min(tv, n_out - chunk * tv);
-    const int n_live = nc * nz;
-    __syncthreads();  // the previous chunk's rows and lists are read
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      if (tid + r * kThreads < kTaps * tv)
-        src_s[tid + r * kThreads] = src_next[r];
-    // the next chunk's rows land while this one is listed and computed
-    fetch(chunk + gridDim.x, b ^ 1, src_next);
-    mbar_wait(full_u32 + 8 * b, (li >> 1) & 1);
-    const unsigned char* gb = g_s + b * g_bytes;
-    const uint32_t gb_u32 = g_u32 + b * g_bytes;
-    // the rows that are not all zero, 32 items a word.  Values, not bits:
-    // -0 (the sign bit alone) is zero, and the masked cotangent is full of
-    // it (a negative value times a zero mask)
-    for (int w = k; w < n_words; w += kWarps) {
-      const int it = 32 * w + lane;
-      bool any = false;
-      if (it < n_live) {
-        const uint4* r =
-            reinterpret_cast<const uint4*>(gb + it * grow + 2 * j0);
-#pragma unroll
-        for (int q = 0; q < NP / 8; ++q) {
-          const uint4 x = r[q];
-          any |= ((x.x | x.y | x.z | x.w) & 0x7fff7fffu) != 0u;
-        }
-      }
-      const uint32_t m = __ballot_sync(0xffffffffu, any);
-      if (lane == 0) mask_s[w] = m;
-    }
-    __syncthreads();
-    if (k == 0) {
-      // listed items before each word: a warp scan of the words' counts
-      int run = 0;
-      for (int w0 = 0; w0 < n_words; w0 += 32) {
-        const int w = w0 + lane;
-        const int cnt = w < n_words ? __popc(mask_s[w]) : 0;
-        int inc = cnt;
-#pragma unroll
-        for (int o = 1; o < 32; o <<= 1) {
-          const int y = __shfl_up_sync(0xffffffffu, inc, o);
-          if (lane >= o) inc += y;
-        }
-        if (w < n_words) base_s[w] = run + inc - cnt;
-        run += __shfl_sync(0xffffffffu, inc, 31);
-      }
-      if (lane == 0) *count_s = run;
-    }
-    __syncthreads();
-    for (int w = k; w < n_words; w += kWarps) {
-      const uint32_t m = mask_s[w];
-      if ((m >> lane) & 1u) {
-        const int it = 32 * w + lane;
-        const int c = it / nz;
-        item_s[base_s[w] + __popc(m & ((1u << lane) - 1u))] =
-            c << 16 | (it - c * nz);
-      }
-    }
-    __syncthreads();
-    const int n_act = *count_s;
-    const int n_steps = WINFUSE_WGRAD_PART == 1 ? 0 : (n_act + 15) / 16;
 
-    // step st's source rows into ring slot st % kStages: for each listed
-    // item whose column has the tap, its rows zo - 1 .. zo + 1 that lie in
-    // the column (contiguous in feats), 16 bytes a copy
+  for (int chunk = blockIdx.x; chunk < n_chunks; chunk += gridDim.x) {
+    const int v0 = chunk * tv;
+    const int nc = min(tv, n_out - v0);
+    const int n_act = __ldg(counts + chunk);
+    __syncthreads();  // the previous chunk's lists and ring are read
+    const int* lc = lists + static_cast<size_t>(chunk) * tv * nz;
+    for (int a = tid; a < n_act; a += kThreads) {
+      const int it = __ldg(lc + a);
+      const int c = it / nz;
+      list_s[a] = c << 16 | (it - c * nz);
+    }
+    for (int c = tid; c < nc; c += kThreads)
+      src_s[c] = __ldg(src + static_cast<size_t>(k) * n_out + v0 + c);
+    __syncthreads();
+    const int n_steps = (n_act + kStepItems - 1) / kStepItems;
+
     auto stage = [&](int st) {
-      if (WINFUSE_WGRAD_PART != 2 && st < n_steps) {
-        const uint32_t buf = ring_u32 + (st % kStages) * 16 * G::kAPitch;
-        for (int p = lane; p < 16 * G::kPieces; p += 32) {
-          const int il = p / G::kPieces;
-          const int piece = p - il * G::kPieces;
-          const int a = 16 * st + il;
-          if (a >= n_act) break;
-          const int e = item_s[a];
-          const int s = my_src[e >> 16];
-          const int z = (e & 0xffff) - 1 + piece / G::kRowPieces;
-          if (s < 0 || z < 0 || z >= nz) continue;
-          cp_async16(buf + il * G::kAPitch + piece * 16,
-                     feats + (static_cast<size_t>(s) * nz + z) * fp + i0 +
-                         (piece % G::kRowPieces) * 8);
+      if (st < n_steps) {
+        const uint32_t a_u32 = ring_u32 + (st % kStages) * G::kStep;
+        const uint32_t b_u32 = a_u32 + kStepItems * G::kAPitch;
+        for (int e = tid; e < kStepItems * (kAPieces + kBPieces);
+             e += kThreads) {
+          if (e < kStepItems * kAPieces) {
+            const int il = e / kAPieces, p = e - il * kAPieces;
+            const int t = p / (CP / 8), pc = p - t * (CP / 8);
+            const int a = kStepItems * st + il;
+            const int ent = a < n_act ? list_s[a] : -1;
+            const int s = ent >= 0 ? src_s[ent >> 16] : -1;
+            const int z = (ent & 0xffff) - 1 + tz0 + t;
+            const bool ok = s >= 0 && z >= 0 && z < nz;
+            cp_async16_or_zero(
+                a_u32 + il * G::kAPitch + 16 * p,
+                ok ? feats + (static_cast<size_t>(s) * nz + z) * CP + 8 * pc
+                   : feats,
+                ok);
+          } else {
+            const int e2 = e - kStepItems * kAPieces;
+            const int il = e2 / kBPieces, pc = e2 - il * kBPieces;
+            const int a = kStepItems * st + il;
+            const bool ok = a < n_act;
+            const int ent = ok ? list_s[a] : 0;
+            cp_async16_or_zero(
+                b_u32 + il * G::kBPitch + 16 * pc,
+                g + ((static_cast<size_t>(v0) + (ent >> 16)) * nz +
+                     (ent & 0xffff)) * NP + 8 * pc,
+                ok);
+          }
         }
       }
       cp_async_commit();
@@ -682,135 +596,133 @@ wgrad_mma(const __nv_bfloat16* __restrict__ feats,
 #pragma unroll
     for (int st = 0; st < kStages - 1; ++st) stage(st);
     for (int st = 0; st < n_steps; ++st) {
+      cp_async_wait<kStages - 2>();
+      __syncthreads();  // step st has landed; step st - 1 is read
       stage(st + kStages - 1);
-      cp_async_wait<kStages - 1>();
-      __syncwarp();  // every lane's copies of step st have landed
-      const uint32_t buf = ring_u32 + (st % kStages) * 16 * G::kAPitch;
-      const int a0 = 16 * st;
-      // A: this lane's item row, or the zero row
-      uint32_t arow = zero_u32;
-      int zo = 0;
-      bool live = false;
-      if (a0 + ia < n_act) {
-        const int e = item_s[a0 + ia];
-        if (my_src[e >> 16] >= 0) {
-          live = true;
-          zo = e & 0xffff;
-          arow = buf + ia * G::kAPitch;
+      const uint32_t a_u32 = ring_u32 + (st % kStages) * G::kStep;
+      const uint32_t b_u32 = a_u32 + kStepItems * G::kAPitch;
+#pragma unroll
+      for (int h = 0; h < kStepItems / 16; ++h) {
+        // k16 step h: items 16h .. 16h + 15 of the step
+        uint32_t af[G::kMTW][4];
+#pragma unroll
+        for (int t = 0; t < G::kMTW; ++t) {
+          const int mt = wm + G::kWM * t;
+          if (mt < G::kMT)
+            ldmatrix_x4_trans(a_u32 + (16 * h + ia) * G::kAPitch +
+                                  2 * (16 * mt + ca),
+                              af[t]);
         }
-      }
-      uint32_t af[G::kMT][4];
+        uint32_t bf[G::kNTW][2];
 #pragma unroll
-      for (int mt = 0; mt < G::kMT; ++mt) {
-        const int m0 = 16 * mt + ca;  // (tz, i0) = (m0 / CP, m0 % CP)
-        const int z = zo + m0 / CP - 1;
-        const bool ok = live && m0 < G::kM && z >= 0 && z < nz;
-        ldmatrix_x4_trans(ok ? arow + 2 * m0 : zero_u32, af[mt]);
-      }
-      // B: this lane's item's cotangent row, or the zero row
-      uint32_t brow = zero_u32;
-      if (a0 + ib < n_act) {
-        const int e = item_s[a0 + ib];
-        brow = gb_u32 + ((e >> 16) * nz + (e & 0xffff)) * grow + 2 * j0;
-      }
-      uint32_t bf[G::kNT][2];
-      if constexpr (G::kNT == 1) {
-        ldmatrix_x2_trans(brow, bf[0][0], bf[0][1]);
-      } else {
-#pragma unroll
-        for (int p = 0; p < G::kNT / 2; ++p) {
+        for (int p = 0; p < G::kNTW / 2; ++p) {
           uint32_t r[4];
-          ldmatrix_x4_trans(brow + 2 * (16 * p + jb), r);
+          ldmatrix_x4_trans(b_u32 + (16 * h + ib) * G::kBPitch +
+                                2 * (8 * (wn * G::kNTW + 2 * p) + jb),
+                            r);
           bf[2 * p][0] = r[0];
           bf[2 * p][1] = r[1];
           bf[2 * p + 1][0] = r[2];
           bf[2 * p + 1][1] = r[3];
         }
+#pragma unroll
+        for (int t = 0; t < G::kMTW; ++t) {
+          if (wm + G::kWM * t >= G::kMT) continue;
+#pragma unroll
+          for (int u = 0; u < G::kNTW; ++u)
+            mma_bf16(acc[t][u], af[t], bf[u][0], bf[u][1]);
+        }
       }
-#pragma unroll
-      for (int mt = 0; mt < G::kMT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < G::kNT; ++nt)
-          mma_bf16(acc[mt][nt], af[mt], bf[nt][0], bf[nt][1]);
-      __syncwarp();  // slot st % kStages is read before it is staged again
     }
+    cp_async_wait<0>();
   }
 
-  // this tap's rows of the block's partial: accumulator r of tile (mt, nt)
-  // is dW_k[16 mt + lane/4 + 8 (r / 2), 8 nt + 2 (lane % 4) + r % 2]
+  // the piece's rows of this block's partial: accumulator r of tile
+  // (t, u) is dW_k[tz0*CP + m][j], m = 16*mt + lane/4 + 8*(r/2), j =
+  // 8*nt + 2*(lane % 4) + r % 2
   float* out = part + static_cast<size_t>(blockIdx.x) * 27 * cin * cout;
 #pragma unroll
-  for (int mt = 0; mt < G::kMT; ++mt)
+  for (int t = 0; t < G::kMTW; ++t) {
+    const int mt = wm + G::kWM * t;
+    if (mt >= G::kMT) continue;
 #pragma unroll
-    for (int nt = 0; nt < G::kNT; ++nt)
+    for (int u = 0; u < G::kNTW; ++u)
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const int m = 16 * mt + (lane >> 2) + 8 * (r >> 1);
-        const int j = j0 + 8 * nt + 2 * (lane & 3) + (r & 1);
-        const int tz = m / CP, i = i0 + m % CP;
-        if (m < G::kM && i < cin && j < cout)
-          out[((3 * k + tz) * cin + i) * cout + j] = acc[mt][nt][r];
+        const int j = 8 * (wn * G::kNTW + u) + 2 * (lane & 3) + (r & 1);
+        const int tz = tz0 + m / CP, i = m % CP;
+        if (i < cin && j < cout)
+          out[((3 * k + tz) * cin + i) * cout + j] = acc[t][u][r];
       }
+  }
 }
 
-// columns of a chunk: the most (<= kMaxTv) whose staging fits
+// pieces of dW (block rows): 9 taps, by three z taps or one
 template <int CP, int NP>
-int chunk_columns(int nz, int grow) {
-  int tv = kMaxTv;
-  while (tv > 1 && smem_bytes<CP, NP>(tv, nz, grow) > kMaxSmem) --tv;
-  return tv;
+constexpr int pieces() {
+  return kTaps * (3 / Geo<CP, NP>::kTZ);
 }
 
-// W: fpitch, gpitch the rows' channels (CP = NP = 32), one block row a
-// 32 x 32 chunk of (Cin, Cout)
-template <int CP, int NP, bool W = false>
+// the list, then the pieces; *grid_out gets the number of partials
+template <int CP, int NP>
 cudaError_t launch(const void* feats, const int* src, const void* g,
-                   float* part, int max_parts, int n_out, int nz, int cin,
-                   int cout, int sms, cudaStream_t st, int* grid_out,
-                   int fpitch = CP, int gpitch = NP) {
-  const int grow = W ? 2 * gpitch : Geo<CP, NP>::kGRow;
-  const int tv = chunk_columns<CP, NP>(nz, grow);
-  const size_t smem = smem_bytes<CP, NP>(tv, nz, grow);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      wgrad_mma<CP, NP, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, wgrad_mma<CP, NP, W>, kThreads, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+                   float* part, int max_parts, int* lists, int n_out, int nz,
+                   int cin, int cout, int sms, cudaStream_t st,
+                   int* grid_out) {
+  const int tv = chunk_columns(nz);
   const int n_chunks = (n_out + tv - 1) / tv;
-  const int pairs = W ? ((cin + 31) / 32) * ((cout + 31) / 32) : 1;
-  int grid = per_sm * sms / pairs;
+  *grid_out = 0;
+  if (n_chunks == 0) return cudaSuccess;
+  int* counts = lists + static_cast<size_t>(n_chunks) * tv * nz;
+  const int list_blocks = (n_chunks + 7) / 8 < 4 * sms ? (n_chunks + 7) / 8
+                                                      : 4 * sms;
+  wgrad_list<<<list_blocks, 256, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(g), lists, counts, n_out, nz, NP,
+      tv);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t smem = smem_bytes<CP, NP>(tv);
+  if ((err = cudaFuncSetAttribute(
+           wgrad_mma<CP, NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+           static_cast<int>(smem))) != cudaSuccess)
+    return err;
+  int per_sm = 0;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, wgrad_mma<CP, NP>, kThreads, smem)) != cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  // block rows of pieces; columns of chunks to fill the card's slots
+  int grid = per_sm * sms / pieces<CP, NP>();
   if (grid < 1) grid = 1;
   if (grid > max_parts) grid = max_parts;
   if (grid > n_chunks) grid = n_chunks;
   *grid_out = grid;
-  if (grid == 0) return cudaSuccess;
-  wgrad_mma<CP, NP, W><<<dim3(grid, pairs), kThreads, smem, st>>>(
+  wgrad_mma<CP, NP><<<dim3(grid, pieces<CP, NP>()), kThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(feats), src,
-      static_cast<const __nv_bfloat16*>(g), part, n_out, nz, cin, cout, tv,
-      fpitch, gpitch);
+      static_cast<const __nv_bfloat16*>(g), lists, counts, part, n_out, nz,
+      cin, cout, tv);
   return cudaGetLastError();
 }
 
 template <int CP>
 cudaError_t by_np(int np, const void* feats, const int* src, const void* g,
-                  float* part, int max_parts, int n_out, int nz, int cin,
-                  int cout, int sms, cudaStream_t st, int* grid_out) {
-  if (np == 8)
-    return launch<CP, 8>(feats, src, g, part, max_parts, n_out, nz, cin,
-                         cout, sms, st, grid_out);
-  if (np == 16)
-    return launch<CP, 16>(feats, src, g, part, max_parts, n_out, nz, cin,
-                          cout, sms, st, grid_out);
-  return launch<CP, 32>(feats, src, g, part, max_parts, n_out, nz, cin, cout,
-                        sms, st, grid_out);
+                  float* part, int max_parts, int* lists, int n_out, int nz,
+                  int cin, int cout, int sms, cudaStream_t st,
+                  int* grid_out) {
+  if constexpr (CP == 32) {
+    if (np == 32) return cudaErrorInvalidValue;  // narrow
+  } else if (np == 32)
+    return launch<CP, 32>(feats, src, g, part, max_parts, lists, n_out, nz,
+                          cin, cout, sms, st, grid_out);
+  if (np == 64)
+    return launch<CP, 64>(feats, src, g, part, max_parts, lists, n_out, nz,
+                          cin, cout, sms, st, grid_out);
+  return launch<CP, 128>(feats, src, g, part, max_parts, lists, n_out, nz,
+                         cin, cout, sms, st, grid_out);
 }
 
-}  // namespace tc
+}  // namespace wide
 
 // out[e] = sum of the blocks' partials, in block order
 __global__ void wgrad_reduce(const float* __restrict__ part,
@@ -870,19 +782,23 @@ extern "C" int sf_winfuse_wgrad_fp32(const void* feats, const int* src,
 // 16-byte aligned; src (9, n_out) int32 as above; scratch and out as
 // above, out (27, cin, cout).  1 <= cin <= cp, 1 <= cout <= np,
 // 1 <= nz <= 256.  Narrow: cp and np 8, 16 or 32, cin and cout <= 32.
-// Wide (cin or cout past 32): cp and np 32, 64 or 128.
+// Wide (cin or cout past 32): cp and np 32, 64 or 128, and lists int32
+// scratch of n_chunks * tv * nz + n_chunks (tv = wide::chunk_columns(nz),
+// n_chunks = ceil(n_out / tv): the wrapper's wgrad_list_ints); the
+// narrow kernels do not read it.
 extern "C" int sf_winfuse_wgrad_bf16(const void* feats, const int* src,
                                      const void* g, void* scratch,
-                                     int max_parts, void* out, int n_out,
-                                     int nz, int cp, int cin, int np,
-                                     int cout, void* stream) {
-  const bool wide = cin > 32 || cout > 32;
-  auto pitch_ok = [wide](int p) {
-    return wide ? p == 32 || p == 64 || p == 128 : p == 8 || p == 16 ||
-                                                       p == 32;
+                                     int max_parts, void* lists, void* out,
+                                     int n_out, int nz, int cp, int cin,
+                                     int np, int cout, void* stream) {
+  const bool is_wide = cin > 32 || cout > 32;
+  auto pitch_ok = [is_wide](int p) {
+    return is_wide ? p == 32 || p == 64 || p == 128
+                   : p == 8 || p == 16 || p == 32;
   };
   if (!pitch_ok(cp) || !pitch_ok(np) || cin < 1 || cin > cp || cout < 1 ||
-      cout > np || nz < 1 || nz > 256 || max_parts < 1 || n_out < 0)
+      cout > np || nz < 1 || nz > 256 || max_parts < 1 || n_out < 0 ||
+      (is_wide && lists == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (reinterpret_cast<uintptr_t>(feats) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(g) % 16 != 0)
@@ -891,9 +807,17 @@ extern "C" int sf_winfuse_wgrad_bf16(const void* feats, const int* src,
   cudaError_t err = sm_count(&sms);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* part = static_cast<float*>(scratch);
-  if (err == cudaSuccess && wide) {
-    err = tc::launch<32, 32, true>(feats, src, g, part, max_parts, n_out, nz,
-                                   cin, cout, sms, st, &grid, cp, np);
+  int* li = static_cast<int*>(lists);
+  if (err == cudaSuccess && is_wide) {
+    if (cp == 32)
+      err = wide::by_np<32>(np, feats, src, g, part, max_parts, li, n_out,
+                            nz, cin, cout, sms, st, &grid);
+    else if (cp == 64)
+      err = wide::by_np<64>(np, feats, src, g, part, max_parts, li, n_out,
+                            nz, cin, cout, sms, st, &grid);
+    else
+      err = wide::by_np<128>(np, feats, src, g, part, max_parts, li, n_out,
+                             nz, cin, cout, sms, st, &grid);
   } else if (err == cudaSuccess) {
     if (cp == 8)
       err = tc::by_np<8>(np, feats, src, g, part, max_parts, n_out, nz, cin,

@@ -39,6 +39,8 @@ csrc/winfuse_wgrad.cu on the card (bf16 on the tensor cores, its rows as
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import cuda_lib
@@ -369,38 +371,63 @@ def tap_weights(weights: torch.Tensor, cp: int) -> torch.Tensor:
     return b
 
 
-# output channels a block of the wide bf16 forward computes
-WIDE_N = 32
+# z the wide forward's per-row activity masks cover (csrc/winfuse.cu's
+# wide::kMaxMaskZ; past it every z of a found column is read)
+WIDE_MASK_Z = 32
 
 
-def wide_tap_weights(weights: torch.Tensor, cp: int) -> torch.Tensor:
+def wide_groups(cout: int, nz: int) -> int:
+    """Groups of 64 output channels a block of the wide bf16 forward
+    computes: 2 where Cout passes 64 and a tile's items still fill the
+    fragments of half its warps (nz <= 128), else 1 (csrc/winfuse.cu's
+    wide::groups, the same rule)."""
+    return 2 if cout > 64 and nz <= 128 else 1
+
+
+def wide_tap_weights(weights: torch.Tensor, cp: int,
+                     nz: int) -> torch.Tensor:
     """(27, Cin, Cout) -> the wide tensor-core kernel's B fragments, bf16
-    (chunks, 9, ks, 2, 32, 4, 2) for chunks = ceil(Cout / WIDE_N) blocks of
-    output channels and ks = 3*cp / 16 k16 steps.  B[k, kk, n] =
-    weights[3k + kk // cp, kk % cp, n] (zero past Cin and Cout), and lane l
-    of step s holds, for n-tile pair p, word w and half h:
+    (chunks, 9, 3*cp/16, 4*groups, 32, 4, 2), groups = wide_groups(Cout,
+    nz) and chunks = ceil(Cout / (64*groups)) blocks of output channels.
+    B[k, kk, n] = weights[3k + kk // cp, kk % cp, n] (zero past Cin and
+    Cout), and lane l of k16 step s holds, for n-tile pair p, word w and
+    half h:
 
-        B[k, 16 s + 2 (l % 4) + 8 (w % 2) + h, 32 chunk + 8 (2p + w // 2)
-          + l // 4]
+        B[k, 16 s + 2 (l % 4) + 8 (w % 2) + h,
+          64 groups chunk + 8 (2p + w // 2) + l // 4]
 
     the order in which the narrow kernel stages w_s (its b0 and b1 of two
-    n-tiles a 16-byte load), so one bulk copy a (chunk, tap) moves it."""
+    n-tiles a 16-byte load) for 8*groups n-tiles.  The cp/16 steps of z
+    tap tz are one contiguous slab of a (chunk, tap), as the kernel streams
+    them.  One gather of the padded (9, 3*cp, Cout) weights by a cached
+    order."""
     _, cin, cout = weights.shape
-    k_pad = -(-3 * cp // 16) * 16
-    chunks = -(-cout // WIDE_N)
-    b = weights.new_zeros(9, k_pad, chunks * WIDE_N, dtype=torch.bfloat16)
-    b[:, :3 * cp].view(9, 3, cp, chunks * WIDE_N)[:, :, :cin, :cout] = \
+    width = 64 * wide_groups(cout, nz)
+    chunks = -(-cout // width)
+    b = weights.new_zeros(9, 3 * cp, chunks * width, dtype=torch.bfloat16)
+    b.view(9, 3, cp, chunks * width)[:, :, :cin, :cout] = \
         weights.reshape(9, 3, cin, cout)
-    dev = weights.device
-    s = torch.arange(k_pad // 16, device=dev).view(-1, 1, 1, 1, 1)
-    p = torch.arange(2, device=dev).view(1, 2, 1, 1, 1)
-    lane = torch.arange(32, device=dev).view(1, 1, 32, 1, 1)
-    word = torch.arange(4, device=dev).view(1, 1, 1, 4, 1)
-    half = torch.arange(2, device=dev).view(1, 1, 1, 1, 2)
+    order = _wide_order(cp, width, chunks, weights.device)
+    return b.view(-1)[order].view(chunks, 9, 3 * cp // 16, width // 16, 32,
+                                  4, 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_order(cp: int, width: int, chunks: int,
+                device: torch.device) -> torch.Tensor:
+    """Flat indices into the padded (9, 3*cp, chunks*width) B of
+    :func:`wide_tap_weights`' fragments, in their order."""
+    s = torch.arange(3 * cp // 16, device=device).view(-1, 1, 1, 1, 1)
+    p = torch.arange(width // 16, device=device).view(1, -1, 1, 1, 1)
+    lane = torch.arange(32, device=device).view(1, 1, 32, 1, 1)
+    word = torch.arange(4, device=device).view(1, 1, 1, 4, 1)
+    half = torch.arange(2, device=device).view(1, 1, 1, 1, 2)
     kk = 16 * s + 2 * (lane % 4) + 8 * (word % 2) + half
     n = 8 * (2 * p + word // 2) + lane // 4
-    bc = b.view(9, k_pad, chunks, WIDE_N).permute(2, 0, 1, 3)
-    return bc[:, :, kk, n].contiguous()
+    chunk = torch.arange(chunks, device=device).view(-1, 1, 1)
+    tap = torch.arange(9, device=device).view(1, -1, 1)
+    return ((tap * 3 * cp).view(1, 9, 1, 1, 1, 1, 1, 1) + kk) * \
+        (chunks * width) + (chunk * width).view(-1, 1, 1, 1, 1, 1, 1, 1) + n
 
 
 def pitch_rows(feats: torch.Tensor, nz: int, cp: int) -> torch.Tensor:
@@ -446,14 +473,18 @@ def _winfuse_cuda(feats, src, weights, nz):
     if feats.dtype == torch.bfloat16:
         if is_wide(cin, cout):
             cp = wide_pitch(cin)
-            w = wide_tap_weights(weights, cp)
+            w = wide_tap_weights(weights, cp, nz)
         else:
             cp = channel_pitch(cin)
             w = tap_weights(weights, cp)
         rows = pitch_rows(feats, nz, cp)
+        # the wide kernel's scratch: each source row's activity mask
+        masks = torch.empty(rows.shape[0] if is_wide(cin, cout) and
+                            nz <= WIDE_MASK_Z else 1, dtype=torch.int32,
+                            device=feats.device)
         err = cuda_lib.kernel('winfuse', 'sf_winfuse_bf16')(
             rows.data_ptr(), src.data_ptr(), w.data_ptr(), out.data_ptr(), v,
-            nz, cp, cout, stream)
+            nz, cp, cout, masks.data_ptr(), rows.shape[0], stream)
     else:
         w = weights.float().contiguous()
         err = cuda_lib.kernel('winfuse', 'sf_winfuse_fp32')(
@@ -466,6 +497,9 @@ def _winfuse_cuda(feats, src, weights, nz):
 # partial sums the wgrad kernel may write: one per block, at most this many
 # blocks an SM
 WGRAD_BLOCKS_PER_SM = 2
+# items (column, z) of a chunk of the wide d weights' lists, at most
+# (csrc/winfuse_wgrad.cu's wide::kListItems)
+WGRAD_LIST_ITEMS = 2048
 
 
 def wgrad_rows(feats: torch.Tensor, g: torch.Tensor, nz: int):
@@ -480,13 +514,39 @@ def wgrad_rows(feats: torch.Tensor, g: torch.Tensor, nz: int):
     return pitch_rows(feats, nz, cp), cp, pitch_rows(g, nz, np_), np_
 
 
-def wgrad_parts(dev, cin: int, cout: int) -> int:
-    """Partial sums the d-weights kernels may write: WGRAD_BLOCKS_PER_SM a
-    multiprocessor, shared by the blocks of the (Cin, Cout) chunks of the
-    wide kernels (one a 32 x 32 chunk)."""
-    chunks = -(-cin // NARROW_CHANNELS) * -(-cout // NARROW_CHANNELS)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return max(1, WGRAD_BLOCKS_PER_SM * sms // chunks)
+def wgrad_pieces(cp: int, np_: int) -> int:
+    """Pieces of dW the wide bf16 d weights cut it into, one block row
+    each: per tap all three z taps where their (3*cp, np) fp32 sums fit 64
+    registers of 256 threads, else one z tap a piece (csrc/
+    winfuse_wgrad.cu's wide::Geo::kTZ)."""
+    return 9 if 3 * cp * np_ <= 64 * 256 else 27
+
+
+def wgrad_chunk_columns(nz: int) -> int:
+    """Columns of a chunk of the wide d weights' item lists."""
+    return max(1, WGRAD_LIST_ITEMS // nz)
+
+
+def wgrad_list_ints(v: int, nz: int) -> int:
+    """int32 scratch the wide d weights' lists take for V columns: a list
+    of tv*nz items and a count for each chunk of tv columns."""
+    tv = wgrad_chunk_columns(nz)
+    chunks = -(-v // tv)
+    return chunks * tv * nz + chunks
+
+
+def wgrad_parts(sms: int, cin: int, cout: int, bf16: bool) -> int:
+    """Partial sums the d-weights kernels may write on a card of ``sms``
+    multiprocessors: WGRAD_BLOCKS_PER_SM a multiprocessor, shared by the
+    block rows of the wide kernels (bf16: :func:`wgrad_pieces`; fp32: one
+    a 32 x 32 chunk of (Cin, Cout))."""
+    if not is_wide(cin, cout):
+        rows = 1
+    elif bf16:
+        rows = wgrad_pieces(wide_pitch(cin), wide_pitch(cout))
+    else:
+        rows = -(-cin // NARROW_CHANNELS) * -(-cout // NARROW_CHANNELS)
+    return max(1, WGRAD_BLOCKS_PER_SM * sms // rows)
 
 
 def _wgrad_cuda(feats, nbr, found, g, nz):
@@ -510,17 +570,20 @@ def _wgrad_cuda(feats, nbr, found, g, nz):
         raise ValueError('winfuse wgrad kernel: inputs on different devices')
     src = torch.where(found, nbr, -1).contiguous()
     dev = feats.device
-    max_parts = wgrad_parts(dev, cin, cout)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    max_parts = wgrad_parts(sms, cin, cout, feats.dtype == torch.bfloat16)
     scratch = torch.empty(max_parts, 27 * cin * cout, dtype=torch.float32,
                           device=dev)
     out = torch.empty(27, cin, cout, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     if feats.dtype == torch.bfloat16:
         rows, cp, g_rows, np_ = wgrad_rows(feats, g, nz)
+        lists = torch.empty(wgrad_list_ints(v, nz) if is_wide(cin, cout)
+                            else 1, dtype=torch.int32, device=dev)
         err = cuda_lib.kernel('winfuse_wgrad', 'sf_winfuse_wgrad_bf16')(
             rows.data_ptr(), src.data_ptr(), g_rows.data_ptr(),
-            scratch.data_ptr(), max_parts, out.data_ptr(), v, nz, cp, cin,
-            np_, cout, stream)
+            scratch.data_ptr(), max_parts, lists.data_ptr(), out.data_ptr(),
+            v, nz, cp, cin, np_, cout, stream)
     else:
         err = cuda_lib.kernel('winfuse_wgrad', 'sf_winfuse_wgrad_fp32')(
             feats.data_ptr(), src.data_ptr(), g.data_ptr(),

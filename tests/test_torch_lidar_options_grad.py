@@ -76,12 +76,16 @@ def test_train_gradients_match_jax(engine, formulation, tail):
                      1e-5, f'd {k}')
 
 
+@pytest.mark.slow
 def test_eval_gradients_match_jax_with_fp64_variables():
     """Eval mode ('gather'): the port's fp32 parameter gradients within
     1e-5 of each leaf's scale of the JAX encoder's with fp64 variables (the
     points, and so the voxels, stay fp32 on both sides).  The distance of
     the JAX encoder's own fp32 gradients is printed beside the port's, for
-    information (ROADMAP Queue 3)."""
+    information (ROADMAP Queue 3).  Marked slow (two JAX compiles, over a
+    minute on the CPU): the gradients the step takes, train mode on the
+    same 'gather' encoder, stay in tier 1
+    (``test_train_gradients_match_jax[gather-sep-3]``)."""
     cfg = micro('gather')
     pts = points()
     module = JL.LidarBEVEncoder(cfg)

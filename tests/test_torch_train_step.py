@@ -16,9 +16,10 @@ every loss to 1e-5, while the gradient leaves differ by up to 0.07 of a
 leaf's scale (median leaf 0.01; the test prints both).  No fp32 run can hold
 another to 5e-3 there.
 
-* float64 (``test_train_step_matches_jax_in_float64``): both sides in
-  fp64, which removes the rounding noise and leaves the function.  Bars:
-  losses 1e-6 relative, every gradient leaf 1e-3 of its scale, new BN
+* float64 (``test_train_step_matches_jax_in_float64``: without the LiDAR
+  in tier 1, the whole step under ``-m slow``): both sides in fp64, which
+  removes the rounding noise and leaves the function.
+  Bars: losses 1e-6 relative, every gradient leaf 1e-3 of its scale, new BN
   statistics 1e-6, parameters after the step as Adam's first update allows.
   The JAX step gets its bf16 pillar features computed op by op by the JAX
   package's own ``pillarize``: under jit XLA contracts the z-std epilogue
@@ -153,8 +154,12 @@ def jax_step():
 
 
 @pytest.fixture(scope='module')
-def jax_step_x64():
-    return _jax_step(x64=True)
+def jax_step_x64(request):
+    """The fp64 JAX step of _cfg() ('camera+lidar') or of _cfg() without
+    the LiDAR ('camera': its fp64 compile and run about half as long)."""
+    cfg = _cfg()
+    cfg.MODEL.MODALITY.USE_LIDAR = request.param == 'camera+lidar'
+    return _jax_step(x64=True, cfg=cfg)
 
 
 def _port_step(cfg, batch, variables, backend, double=False):
@@ -225,7 +230,22 @@ def _check_params(trainer, before, want, cfg, sure_tol):
     return n_sure
 
 
+@pytest.mark.parametrize('jax_step_x64', [
+    pytest.param('camera+lidar', marks=pytest.mark.slow), 'camera'],
+    indirect=True)
 def test_train_step_matches_jax_in_float64(jax_step_x64):
+    """The whole step ('camera+lidar') is marked slow: the JAX step's fp64
+    compile alone is over two minutes on the CPU.  Without the LiDAR
+    ('camera') the same bars hold every gradient leaf of the camera
+    encoder, the lift, the temporal model, the future prediction, the
+    decoder and the losses in tier 1; the LiDAR encoder's train-mode
+    gradients are held leaf by leaf in test_torch_lidar_train.py and
+    test_torch_lidar_options_grad.py.  (The step without the camera is no
+    such check: it is too ill-conditioned for a 1e-3 bar.  There the
+    port's own gradient leaves move by up to 8e-3 of their scale when only
+    its LiDAR branch computes in fp32 in place of fp64, 3e-6 with the
+    camera; against the JAX step they differ by up to 3e-2 while every
+    loss agrees to 1e-7.)"""
     cfg, batch, variables, want = jax_step_x64
     trainer, metrics, before = _port_step(cfg, batch, variables, 'scatter',
                                           double=True)

@@ -166,21 +166,32 @@ def _staged_w_s(b, cp, nt):
     return out.view(9, k_pad // 16, nt // 2, 32, 4, 2)
 
 
-@pytest.mark.parametrize('cin,cp', [(5, 8), (20, 32)])
-def test_wide_weights_are_the_narrow_kernels_fragment_order(cin, cp):
-    """wide_tap_weights lays out each 32-channel chunk of Cout as the
-    narrow kernel's prologue stages w_s (NT = 4), so the wide kernel's bulk
-    copy of a (chunk, tap) block feeds the same fragment loads."""
+@pytest.mark.parametrize('cin,cp,nz', [(20, 32, 5), (40, 64, 200)])
+def test_wide_weights_are_the_narrow_kernels_fragment_order(cin, cp, nz):
+    """wide_tap_weights lays out each chunk of 64*groups output channels as
+    the narrow kernel's prologue stages w_s for 8*groups n-tiles, so the
+    wide kernel's 16-byte loads of a (chunk, tap) feed the same fragment
+    order (groups 2 at nz 5, 1 past nz 128: two chunks of 64)."""
     rng = np.random.default_rng(1)
-    w = torch.from_numpy(rng.standard_normal((27, cin, 72)).astype(
+    cout = 72
+    w = torch.from_numpy(rng.standard_normal((27, cin, cout)).astype(
         np.float32))
-    wide = WF.wide_tap_weights(w, cp)
-    assert tuple(wide.shape) == (3, 9, -(-3 * cp // 16), 2, 32, 4, 2)
-    for chunk in range(3):
-        part = w[..., 32 * chunk:32 * chunk + 32]
-        b = WF.tap_weights(torch.cat(
-            [part, part.new_zeros(27, cin, 32 - part.shape[2])], 2), cp)
-        assert torch.equal(wide[chunk], _staged_w_s(b, cp, 4)), chunk
+    groups = WF.wide_groups(cout, nz)
+    assert groups == (2 if nz <= 128 else 1)
+    width = 64 * groups
+    chunks = -(-cout // width)
+    wide = WF.wide_tap_weights(w, cp, nz)
+    assert tuple(wide.shape) == (chunks, 9, 3 * cp // 16, 4 * groups, 32,
+                                 4, 2)
+    padded = torch.cat([w, w.new_zeros(27, cin, chunks * width - cout)], 2)
+    for chunk in range(chunks):
+        # the chunk's B: tap_weights of its 32-channel slices side by side
+        # (cp is a multiple of 16, so K = 3*cp)
+        b = torch.cat([WF.tap_weights(padded[..., j:j + 32], cp)
+                       for j in range(width * chunk, width * chunk + width,
+                                      32)], 2)
+        assert torch.equal(wide[chunk], _staged_w_s(b, cp, 8 * groups)), \
+            chunk
 
 
 @pytest.mark.parametrize('cin,cout,pitches', [
