@@ -36,15 +36,18 @@ line (``phases``).  Phases, each printing one JSON line:
   5. winfuse     K3 vs plain version at flagship geometry (the 5 clouds of
                  one request voxelized into columns: conv_input 5->16 and
                  stage 1 16->16 at nz 41, stage 2 32->32 at nz 21 behind the
-                 plain down1, bf16 on the tensor cores and fp32 on the CUDA
-                 cores; 16->16 at the tiny config's nz 25) and a forced-drop
-                 plan, with the route of each case and the kernels' ptxas
-                 report (registers, spills); its backward at stage 1 and
-                 stage 2 in bf16 and fp32 and over the forced-drop plan:
+                 plain down1, bf16 on the tensor cores and fp32 in 3xTF32 on
+                 path-like rows (zero at the inactive sites) and dense ones;
+                 16->16 at the tiny config's nz 25) and a forced-drop plan
+                 (bf16 and fp32), with the route of each case and the
+                 kernels' ptxas report (registers, spills); its backward at
+                 stage 1 and stage 2 in bf16 and fp32 and over the
+                 forced-drop plan (bf16 and fp32):
                  d feats (the forward's kernels over the reversed map) and
                  d weights (csrc/winfuse_wgrad.cu) vs the plain forward's
                  autograd over the full found, with times and bounds, and
-                 conv_input's d weights (Cin 5); d weights launched three
+                 conv_input's d weights (Cin 5, bf16 and fp32); each fp32
+                 row's share of its bound; d weights launched three
                  times a case for equal bits, the bf16 d weights' ptxas
                  report free of spills, beside it torch.matmul of the
                  compacted, pre-gathered products alone (gemm_alone_ms),
@@ -52,11 +55,9 @@ line (``phases``).  Phases, each printing one JSON line:
                  wide kernels (past 32 channels) at stage 3 (64 -> 64, nz
                  11) and stage 4 (128 -> 128, nz 5) of the same clouds'
                  DENSE_TAIL_FROM_STAGE 0 geometry, forward, d feats and d
-                 weights, bf16 and fp32, under the same bars; the bf16 ones
-                 timed in turns against the design they replaced
-                 (csrc/winfuse_wide_parent.cu, held to the same bars), each
-                 row's share of its bound, and the wide forward's time
-                 split by two ablations (products alone, copies alone);
+                 weights, bf16 and fp32, under the same bars, each row's
+                 share of its bound, and the wide forward's time split by
+                 two ablations (products alone, copies alone);
                  and the wide bf16 kernels past the row masks' 32 z (the
                  flagship's 41, 64 -> 128 on one cloud's stage-1 columns),
                  forward, d feats and d weights, under the same bars
@@ -187,7 +188,9 @@ line (``phases``).  Phases, each printing one JSON line:
                  a forecast
  20. kernels     every kernel of the port with its launches, error and times
                  (the wide K3 rows: launches of sparse_options' tail-0
-                 forecasts and step)
+                 forecasts and step; the fp32 K3 rows, 3xTF32: the
+                 forward's of reference_import's evaluation, d feats' and
+                 d weights' of train_tiny_spconv's fp32 step)
                  (cli_launches: of phase cli; import_launches: of phase
                  reference_import's evaluation; planning_launches: of phases
                  planning and planning_cli); then a check that every
@@ -214,10 +217,22 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM peaks (NVIDIA data sheet, at 700 W): HBM bytes/s, fp32 FLOP/s
-# outside the tensor cores, dense bf16 FLOP/s of the tensor cores
+# outside the tensor cores, dense bf16 FLOP/s of the tensor cores; the
+# 3xTF32 route's: three passes at the dense TF32 peak (495 TFLOP/s)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+TF32X3_FLOPS = 495e12 / 3
+
+
+def peak_flops(dtype, cin, cout):
+    """The peak rate of K3's route for rows of ``dtype`` at these widths
+    (ops/winfuse.py::route): bf16 and 3xTF32 on the tensor cores, fp32
+    past 32 channels on the CUDA cores."""
+    import torch
+    if dtype == torch.bfloat16:
+        return BF16_FLOPS
+    return FP32_FLOPS if max(cin, cout) > 32 else TF32X3_FLOPS
 
 
 # every line the phases print, kept for the --out file (a long run's output
@@ -1213,13 +1228,13 @@ def _winfuse_case(name, feats, geo, w, nz, zmask=None, reps=10):
     n_bytes = (n_rows * feats.shape[1] + got.numel() + w.numel()) * es + \
         geo.nbr.numel() * 4 + geo.found.numel()
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = flops / (BF16_FLOPS if bf16 else FP32_FLOPS)
+    t_ops = flops / peak_flops(feats.dtype, cin, cout)
     ms = cuda_ms(lambda: WF.subm_conv_winfuse(feats, geo.nbr, geo.found, w,
                                               nz), reps=reps)
     plain_ms = cuda_ms(lambda: WF.subm_conv_plain(feats, geo.nbr, geo.found,
                                                   w, nz), reps=3, warmup=1)
     return dict(case=name, dtype=str(feats.dtype).split('.')[-1], nz=nz,
-                cin=cin, cout=cout, route=WF.route(feats.dtype),
+                cin=cin, cout=cout, route=WF.route(feats.dtype, cin, cout),
                 rows=geo.nbr.shape[1], rows_read=n_rows, found_taps=n_found,
                 found_share=n_found / geo.found.numel(),
                 max_abs_err=max_err(got, want)[0],
@@ -1227,7 +1242,8 @@ def _winfuse_case(name, feats, geo, w, nz, zmask=None, reps=10):
                 twin_ms=plain_ms, bytes=n_bytes, flops=flops,
                 flops_dense_z=flops_dense,
                 bound_us=max(t_bytes, t_ops) * 1e6,
-                bound_by='bytes' if t_bytes >= t_ops else 'operations')
+                bound_by='bytes' if t_bytes >= t_ops else 'operations',
+                bound_share=max(t_bytes, t_ops) * 1e3 / ms)
 
 
 def _k3_bwd_ops(geo, zmask, nz, cin, cout):
@@ -1301,6 +1317,33 @@ def _wgrad_parts_ms(feats, geo, g, nz):
             rows.data_ptr(), src.data_ptr(), g_rows.data_ptr(),
             scratch.data_ptr(), parts, None, out.data_ptr(), rows_n, nz, cp,
             cin, np_, cout, stream)))
+    return times
+
+
+def _wide_parts_ms(feats, geo, w, nz, reps=5):
+    """The wide bf16 forward built as its ablations (WIDE_PARTS: the copies
+    and barriers alone; the products alone), each launched on the
+    wrapper's prepared inputs: CUDA-event ms.  Their results are wrong by
+    design and are not read."""
+    import torch
+    from streamingflow_tpu_torch.ops import cuda_lib
+    from streamingflow_tpu_torch.ops import winfuse as WF
+    dev = feats.device
+    rows_n, cout = geo.nbr.shape[1], w.shape[2]
+    cp = WF.wide_pitch(w.shape[1])
+    rows = WF.pitch_rows(feats, nz, cp)
+    wk = WF.wide_tap_weights(w, cp, nz)
+    src = torch.where(geo.found, geo.nbr, -1).int().contiguous()
+    masks = torch.empty(rows.shape[0], dtype=torch.int32, device=dev)
+    out = torch.empty(rows_n, nz * cout, dtype=feats.dtype, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    times = {}
+    for key, defines in WIDE_PARTS.items():
+        fn = cuda_lib.kernel('winfuse', 'sf_winfuse_bf16', defines)
+        times[key] = cuda_ms(lambda: cuda_lib.check('winfuse', fn(
+            rows.data_ptr(), src.data_ptr(), wk.data_ptr(), out.data_ptr(),
+            rows_n, nz, cp, cout, masks.data_ptr(), rows.shape[0], stream)),
+            reps=reps)
     return times
 
 
@@ -1379,7 +1422,7 @@ def _winfuse_bwd_case(name, feats, geo, w, nz, zmask, reps=5,
                                  f'taps do not move the gradient')
     es = feats.element_size()
     ops = _k3_bwd_ops(geo, zmask, nz, cin, cout)
-    peak = BF16_FLOPS if bf16 else FP32_FLOPS
+    peak = peak_flops(feats.dtype, cin, cout)
     maps = geo.nbr.numel() * 5
     # d feats: the cotangent rows the reversed taps read, the whole output,
     # the weights, the reversed map
@@ -1422,8 +1465,9 @@ def _winfuse_bwd_case(name, feats, geo, w, nz, zmask, reps=5,
                          plain_ms=cuda_ms(plain, reps=2, warmup=1),
                          bytes=n_bytes, bound_ms=bound_ms,
                          bound_by=bound_by)
+        out[kind]['bound_share'] = bound_ms / out[kind]['ms']
     out['wgrad']['runs_equal'] = len(reruns) + 1
-    out['wgrad']['route'] = WF.route(feats.dtype)
+    out['wgrad']['route'] = WF.route(feats.dtype, cin, cout)
     if bf16 and ablations:
         out['wgrad']['gemm_alone_ms'], out['wgrad']['gemm_items'] = \
             _wgrad_gemm_alone(feats, geo, g, nz)
@@ -1434,138 +1478,13 @@ def _winfuse_bwd_case(name, feats, geo, w, nz, zmask, reps=5,
     return out
 
 
-def parent_wide_tap_weights(weights, cp):
-    """The B layout of csrc/winfuse_wide_parent.cu's forward (the wide
-    kernel before its redesign): (chunks of 32 output channels, 9,
-    3*cp/16, 2, 32, 4, 2), each 32-channel chunk in the narrow kernel's
-    fragment order."""
-    import torch
-    _, cin, cout = weights.shape
-    k_pad = 3 * cp
-    chunks = -(-cout // 32)
-    b = weights.new_zeros(9, k_pad, chunks * 32, dtype=torch.bfloat16)
-    b.view(9, 3, cp, chunks * 32)[:, :, :cin, :cout] = \
-        weights.reshape(9, 3, cin, cout)
-    dev = weights.device
-    s = torch.arange(k_pad // 16, device=dev).view(-1, 1, 1, 1, 1)
-    p = torch.arange(2, device=dev).view(1, 2, 1, 1, 1)
-    lane = torch.arange(32, device=dev).view(1, 1, 32, 1, 1)
-    word = torch.arange(4, device=dev).view(1, 1, 1, 4, 1)
-    half = torch.arange(2, device=dev).view(1, 1, 1, 1, 2)
-    kk = 16 * s + 2 * (lane % 4) + 8 * (word % 2) + half
-    n = 8 * (2 * p + word // 2) + lane // 4
-    bc = b.view(9, k_pad, chunks, 32).permute(2, 0, 1, 3)
-    return bc[:, :, kk, n].contiguous()
-
-
-def _wide_parent_ab(name, feats, geo, w, nz, zmask, reps=5):
-    """The redesigned wide bf16 kernels against the ones they replace
-    (csrc/winfuse_wide_parent.cu, the parent's design) on the same inputs:
-    the forward, d feats (over the reversed map, flipped weights) and d
-    weights, each through the port's wrapper and the parent's through the
-    same preparation.  Each parent result is held against its plain
-    version at the case's bars; times in the order parent, new, new,
-    parent (``reps`` launches each)."""
-    import torch
-    from streamingflow_tpu_torch.ops import cuda_lib
-    from streamingflow_tpu_torch.ops import winfuse as WF
-    dev = feats.device
-    rows_n, cin, cout = geo.nbr.shape[1], w.shape[1], w.shape[2]
-    gen = torch.Generator(device=dev).manual_seed(7)
-    g = (torch.randn(rows_n, nz, cout, device=dev, generator=gen) *
-         zmask.reshape(rows_n, nz, 1)).to(feats.dtype).reshape(
-             rows_n, nz * cout)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    fwd = cuda_lib.kernel('winfuse_wide_parent', 'sf_winfuse_bf16_parent')
-    wgr = cuda_lib.kernel('winfuse_wide_parent',
-                          'sf_winfuse_wgrad_bf16_parent')
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-
-    def parent_conv(x, src, wt):
-        co = wt.shape[2]
-        cp = WF.wide_pitch(wt.shape[1])
-        wk = parent_wide_tap_weights(wt, cp)
-        rows = WF.pitch_rows(x, nz, cp)
-        out = torch.empty(src.shape[1], nz * co, dtype=x.dtype, device=dev)
-        cuda_lib.check('winfuse_wide_parent', fwd(
-            rows.data_ptr(), src.data_ptr(), wk.data_ptr(), out.data_ptr(),
-            src.shape[1], nz, cp, co, stream))
-        return out
-
-    def parent_wgrad():
-        rows, cp, g_rows, np_ = WF.wgrad_rows(feats, g, nz)
-        src = torch.where(geo.grad_found, geo.nbr, -1).contiguous()
-        parts = max(1, WF.WGRAD_BLOCKS_PER_SM * sms //
-                    (-(-cin // 32) * -(-cout // 32)))
-        scratch = torch.empty(parts, 27 * cin * cout, device=dev)
-        out = torch.empty(27, cin, cout, device=dev)
-        cuda_lib.check('winfuse_wide_parent', wgr(
-            rows.data_ptr(), src.data_ptr(), g_rows.data_ptr(),
-            scratch.data_ptr(), parts, out.data_ptr(), rows_n, nz, cp, cin,
-            np_, cout, stream))
-        return out
-
-    src_f = torch.where(geo.found, geo.nbr, -1).int().contiguous()
-    flipped = WF.flipped_weights(w)
-    # the forward's ablations on its prepared inputs (results wrong by
-    # design, not read)
-    cp = WF.wide_pitch(cin)
-    rows = WF.pitch_rows(feats, nz, cp)
-    wk = WF.wide_tap_weights(w, cp, nz)
-    masks = torch.empty(rows.shape[0], dtype=torch.int32, device=dev)
-    scratch_out = torch.empty(rows_n, nz * cout, dtype=feats.dtype,
-                              device=dev)
-    parts = {}
-    for key, defines in WIDE_PARTS.items():
-        fn = cuda_lib.kernel('winfuse', 'sf_winfuse_bf16', defines)
-        parts[key] = cuda_ms(lambda: cuda_lib.check('winfuse', fn(
-            rows.data_ptr(), src_f.data_ptr(), wk.data_ptr(),
-            scratch_out.data_ptr(), rows_n, nz, cp, cout, masks.data_ptr(),
-            rows.shape[0], stream)), reps=reps)
-    legs = {
-        'forward': (
-            lambda: WF.subm_conv_winfuse(feats, geo.nbr, geo.found, w, nz),
-            lambda: parent_conv(feats, src_f, w),
-            WF.subm_conv_plain(feats, geo.nbr, geo.found, w, nz), 'fwd'),
-        'dgrad': (
-            lambda: WF.subm_conv_dgrad(g, geo.src_t, w, nz),
-            lambda: parent_conv(g, geo.src_t, flipped),
-            WF.subm_conv_plain(g, geo.src_t.clamp(min=0), geo.src_t >= 0,
-                               flipped, nz), 'dgrad'),
-        'wgrad': (
-            lambda: WF.subm_conv_wgrad(feats, geo.nbr, geo.grad_found, g,
-                                       nz),
-            parent_wgrad,
-            WF.subm_conv_wgrad_plain(feats.double(), geo.nbr,
-                                     geo.grad_found, g.double(), nz),
-            'wgrad')}
-    out = dict(case=name, nz=nz, cin=cin, cout=cout, reps=reps,
-               order='parent, new, new, parent')
-    for leg, (new, parent, want, kind) in legs.items():
-        got = parent()
-        torch.cuda.synchronize()
-        scale = float(want.float().abs().max())
-        tol = (dict(rtol=2 ** -7, atol=1e-2) if kind == 'fwd' else
-               dict(rtol=2 ** -7, atol=2 ** -7 * scale) if kind == 'dgrad'
-               else dict(rtol=1e-4, atol=1e-4 * scale))
-        check_close(f'winfuse parent {leg} {name}', got, want, **tol)
-        runs = [cuda_ms(fn, reps=reps) for fn in (parent, new, new, parent)]
-        out[leg] = dict(parent_max_abs_err=max_err(got, want)[0],
-                        tolerance=tol, parent_runs_ms=[runs[0], runs[3]],
-                        new_runs_ms=[runs[1], runs[2]],
-                        parent_ms=(runs[0] + runs[3]) / 2,
-                        ms=(runs[1] + runs[2]) / 2)
-        out[leg]['speedup'] = out[leg]['parent_ms'] / out[leg]['ms']
-    out['forward']['kernel_parts'] = parts
-    return out
-
-
 def k3_inputs(dev):
     """K3's inputs at the flagship spconv8x geometry of one request (the 5
     clouds of 80k points voxelized into columns, stacked as the main path
     launches it), random features from seed 0 zeroed at the inactive sites
     as on the main path: the three bf16 cases {name: (feats, geo, weights,
-    nz, zmask)}, and what phase_winfuse builds its other cases from."""
+    nz, zmask)}, and what phase_winfuse builds its other cases from
+    (``fp32_cases()``: the three in fp32)."""
     import types
     import torch
     from streamingflow_tpu_torch.data import flagship_config, make_batch
@@ -1603,10 +1522,25 @@ def k3_inputs(dev):
     geo2 = L.column_geometry(cs2, shape2[:2], se)
     nz2 = shape2[2]
 
-    def path_like(cs, nz, c, zmask=None):
+    def path_like(cs, nz, c, zmask=None, dtype=bf16):
         zmask = cs.zmask if zmask is None else zmask
-        return SC.mask_fused(rand(n, cs.col_ids.shape[1], nz * c),
-                             zmask).reshape(-1, nz * c)
+        return SC.mask_fused(rand(n, cs.col_ids.shape[1], nz * c,
+                                  dtype=dtype), zmask).reshape(-1, nz * c)
+
+    def fp32_cases():
+        """The same three shapes in fp32 (the released weights'
+        evaluation, the fp32 step): conv_input on the clouds' own fp32
+        voxel features, stages 1 and 2 on fp32 path-like rows, fp32
+        weights."""
+        f32 = torch.float32
+        cs1_32 = L.column_sets(pts, (pts[..., :3] != 0).any(-1), se, f32)
+        return {
+            'conv_input': (SC.mask_fused(cs1_32.feats, cs1.zmask).reshape(
+                n * cap1, -1), geo1, weights(5, 16, f32), nz1, cs1.zmask),
+            'stage1': (path_like(cs1, nz1, 16, dtype=f32), geo1,
+                       weights(16, 16, f32), nz1, cs1.zmask),
+            'stage2': (path_like(cs2, nz2, 32, dtype=f32), geo2,
+                       weights(32, 32, f32), nz2, cs2.zmask)}
 
     cases = {
         'conv_input': (SC.mask_fused(cs1.feats, cs1.zmask).reshape(
@@ -1619,7 +1553,8 @@ def k3_inputs(dev):
     return cases, types.SimpleNamespace(
         se=se, n=n, cs1=cs1, cs2=cs2, geo1=geo1, geo2=geo2, shape2=shape2,
         nz1=nz1, nz2=nz2, cap1=cap1, cap2=cs2.col_ids.shape[1], rand=rand,
-        weights=weights, path_like=path_like, down1=down1, pts=pts)
+        weights=weights, path_like=path_like, down1=down1, pts=pts,
+        fp32_cases=fp32_cases)
 
 
 def k3_wide_inputs(dev, x):
@@ -1687,6 +1622,10 @@ def phase_winfuse(dev, results):
     # inside conv_input's time above
     f0, _, _, nz0, _ = inputs['conv_input']
     pitch_ms = cuda_ms(lambda: WF.pitch_rows(f0, nz0, 8))
+    f32 = torch.float32
+    inputs32 = x.fp32_cases()
+    cases += [_winfuse_case(f'{name}_fp32', f, geo, w, nz, zmask, reps=5)
+              for name, (f, geo, w, nz, zmask) in inputs32.items()]
     cases += [
         _winfuse_case('stage1_fp32_dense', rand(n * cap1, nz1 * 16,
                                                 dtype=torch.float32),
@@ -1716,47 +1655,60 @@ def phase_winfuse(dev, results):
                              f'{cpu_drops}')
     geo_drop = L.ColumnGeo(torch.cat(nbrs, 1).int(), torch.cat(founds, 1),
                            None, geo2.grad_found, geo2.src_t)
-    cases.append(_winfuse_case('stage2_drop', rand(n * cap2, nz2 * 32),
-                               geo_drop, weights(32, 32), nz2, reps=3))
-    main = cases[2]
+    cases += [
+        _winfuse_case('stage2_drop', rand(n * cap2, nz2 * 32), geo_drop,
+                      weights(32, 32), nz2, reps=3),
+        _winfuse_case('stage2_drop_fp32', rand(n * cap2, nz2 * 32, dtype=f32),
+                      geo_drop, weights(32, 32, f32), nz2, reps=3)]
+    by_case = {c['case']: c for c in cases}
     ms = {c['case']: c['kernel_ms'] for c in cases}
-    results['winfuse'] = dict(
-        max_abs_err=main['max_abs_err'], ms=main['kernel_ms'],
-        plain_ms=main['twin_ms'], library_ms=None,
-        bound_ms=main['bound_us'] / 1e3, bound_by=main['bound_by'])
+    for key, name in (('winfuse', 'stage2'), ('winfuse_fp32', 'stage2_fp32')):
+        main = by_case[name]
+        results[key] = dict(
+            max_abs_err=main['max_abs_err'], ms=main['kernel_ms'],
+            plain_ms=main['twin_ms'], library_ms=None,
+            bound_ms=main['bound_us'] / 1e3, bound_by=main['bound_by'])
+    results['winfuse_fp32']['bound_share'] = main['bound_share']
 
     # the backward (the training step's): d feats and d weights at the
     # main path's stage-1 and stage-2 shapes, bf16 as the step runs them
-    # and fp32, and over the forced-drop plan (forward over the kept taps,
-    # backward over all of them)
-    f32 = torch.float32
+    # and fp32 (3xTF32), and over the forced-drop plan (forward over the
+    # kept taps, backward over all of them)
     f_drop = x.path_like(cs2, nz2, 32)
     # conv_input's voxel features take no gradient: d weights only (Cin 5,
     # the kernel's 8-channel pitch)
     bwd = [_winfuse_bwd_case(nm, f, geo, w, nz, zm,
                              dgrad=nm != 'conv_input')
            for nm, (f, geo, w, nz, zm) in inputs.items()]
+    bwd += [_winfuse_bwd_case(f'{nm}_fp32', f, geo, w, nz, zm, reps=3,
+                              dgrad=nm != 'conv_input')
+            for nm, (f, geo, w, nz, zm) in inputs32.items()]
     bwd += [
-        _winfuse_bwd_case('stage1_fp32', x.path_like(cs1, nz1, 16).float(),
-                          geo1, weights(16, 16, f32), nz1, cs1.zmask, reps=2),
-        _winfuse_bwd_case('stage2_fp32', x.path_like(cs2, nz2, 32).float(),
-                          geo2, weights(32, 32, f32), nz2, cs2.zmask, reps=2),
         _winfuse_bwd_case('stage2_drop', f_drop, geo_drop, weights(32, 32),
                           nz2, cs2.zmask, reps=2),
+        _winfuse_bwd_case('stage2_drop_fp32',
+                          x.path_like(cs2, nz2, 32, dtype=f32), geo_drop,
+                          weights(32, 32, f32), nz2, cs2.zmask, reps=2),
     ]
-    main_bwd = bwd[2]                         # stage 2, bf16
+    del inputs32
+    by_bwd = {c['case']: c for c in bwd}
+    main_bwd = by_bwd['stage2']
     for kind in ('dgrad', 'wgrad'):
-        c = main_bwd[kind]
-        results[f'winfuse_{kind}'] = dict(
-            max_abs_err=c['max_abs_err'], ms=c['ms'], plain_ms=c['plain_ms'],
-            library_ms=None, bound_ms=c['bound_ms'], bound_by=c['bound_by'])
+        for key, name in ((f'winfuse_{kind}', 'stage2'),
+                          (f'winfuse_{kind}_fp32', 'stage2_fp32')):
+            c = by_bwd[name][kind]
+            results[key] = dict(
+                max_abs_err=c['max_abs_err'], ms=c['ms'],
+                plain_ms=c['plain_ms'], library_ms=None,
+                bound_ms=c['bound_ms'], bound_by=c['bound_by'])
+        results[f'winfuse_{kind}_fp32']['bound_share'] = \
+            by_bwd['stage2_fp32'][kind]['bound_share']
 
     # the wide kernels (Cin, Cout past 32): stages 3 and 4 on columns
     # (DENSE_TAIL_FROM_STAGE 0), bf16 as the forecast and the step run them
-    # and fp32, forward and backward, under the same bars
-    # and the bf16 ones against the parent's design in the same call (the
-    # A/B: parent_ms beside ms, and each row's share of its bound)
-    wide_cases, wide_bwd, wide_ab = [], [], []
+    # and fp32, forward and backward, under the same bars, each row's share
+    # of its bound, and the bf16 forward split by its ablations
+    wide_cases, wide_bwd = [], []
     for name, (f, geo, w, nz, zm) in k3_wide_inputs(dev, x).items():
         wide_cases += [
             _winfuse_case(name, f, geo, w, nz, zm, reps=5),
@@ -1767,21 +1719,19 @@ def phase_winfuse(dev, results):
                               ablations=False),
             _winfuse_bwd_case(f'{name}_fp32', f.float(), geo, w.float(), nz,
                               zm, reps=2, ablations=False)]
-        wide_ab.append(_wide_parent_ab(name, f, geo, w, nz, zm))
+        wide_cases[-2]['kernel_parts'] = _wide_parts_ms(f, geo, w, nz)
         width = w.shape[2]
-        c, ab = wide_cases[-2], wide_ab[-1]
+        c = wide_cases[-2]
         results[f'winfuse_wide{width}'] = dict(
             max_abs_err=c['max_abs_err'], ms=c['kernel_ms'],
             plain_ms=c['twin_ms'], library_ms=None,
-            bound_ms=c['bound_us'] / 1e3, bound_by=c['bound_by'],
-            ab_ms=ab['forward']['ms'], parent_ms=ab['forward']['parent_ms'])
+            bound_ms=c['bound_us'] / 1e3, bound_by=c['bound_by'])
         for kind in ('dgrad', 'wgrad'):
             c = wide_bwd[-2][kind]
             results[f'winfuse_{kind}_wide{width}'] = dict(
                 max_abs_err=c['max_abs_err'], ms=c['ms'],
                 plain_ms=c['plain_ms'], library_ms=None,
-                bound_ms=c['bound_ms'], bound_by=c['bound_by'],
-                ab_ms=ab[kind]['ms'], parent_ms=ab[kind]['parent_ms'])
+                bound_ms=c['bound_ms'], bound_by=c['bound_by'])
         for kind in ('', 'dgrad_', 'wgrad_'):
             r = results[f'winfuse_{kind}wide{width}']
             r['bound_share'] = r['bound_ms'] / r['ms']
@@ -1800,9 +1750,10 @@ def phase_winfuse(dev, results):
                                       ablations=False))
     results['winfuse_wgrad']['gemm_alone_ms'] = \
         main_bwd['wgrad']['gemm_alone_ms']
-    # the tensor-core d weights keeps its sums in registers: no spill
+    # the bf16 tensor-core d weights (namespace tc) keeps its sums in
+    # registers: no spill
     wgrad_ptxas = _ptxas_report(cuda_lib.BUILD_LOG.get('winfuse_wgrad', ''))
-    mma_ptxas = [r for r in wgrad_ptxas if 'wgrad_mma' in r['kernel']]
+    mma_ptxas = [r for r in wgrad_ptxas if '2tc9wgrad_mma' in r['kernel']]
     if not mma_ptxas or any(r['spill_stores'] or r['spill_loads']
                             for r in mma_ptxas):
         raise AssertionError(f'winfuse wgrad: the bf16 kernel spills or is '
@@ -1818,13 +1769,16 @@ def phase_winfuse(dev, results):
                         'forced': drops},
           'cases': cases, 'backward_cases': bwd,
           'wide_cases': wide_cases, 'wide_backward_cases': wide_bwd,
-          'wide_parent_ab': wide_ab,
           'ptxas': _ptxas_report(cuda_lib.BUILD_LOG.get('winfuse', '')),
+          'ptxas_fp32': _ptxas_report(cuda_lib.BUILD_LOG.get('winfuse_fp32',
+                                                            '')),
           'wgrad_ptxas': wgrad_ptxas,
           'down1_plain_ms_per_cloud': down1_ms,
           'conv_input_pitch_rows_ms': pitch_ms,
           'forecast_ms_est': ms['conv_input'] + 4 * ms['stage1']
           + 4 * ms['stage2'],
+          'forecast_fp32_ms_est': ms['conv_input_fp32']
+          + 4 * ms['stage1_fp32'] + 4 * ms['stage2_fp32'],
           'library_call': 'none: no one call computes this function',
           'gemm_alone': 'torch.matmul of the 9 taps\' compacted, '
                         'pre-gathered A_k^T B (gathered outside the timed '
@@ -2319,9 +2273,9 @@ def phase_train_tiny_spconv(dev):
             'cpu_fp64': P.train_step(cpu64, batch)}
     counters = {'patch_pool': (PP, 'launches'),
                 'patch_pool_bwd': (PP, 'launches_bwd'),
-                'winfuse': (WF, 'launches'),
-                'winfuse_dgrad': (WF, 'launches_dgrad'),
-                'winfuse_wgrad': (WF, 'launches_wgrad')}
+                'winfuse_fp32': (WF, 'launches_fp32'),
+                'winfuse_dgrad_fp32': (WF, 'launches_dgrad_fp32'),
+                'winfuse_wgrad_fp32': (WF, 'launches_wgrad_fp32')}
     before = {k: getattr(m, a) for k, (m, a) in counters.items()}
     runs['card'] = P.train_step(gpu, batch)
     torch.cuda.synchronize()
@@ -2391,6 +2345,7 @@ def phase_train_tiny_spconv(dev):
           'tolerance': tol})
     if failed:
         raise AssertionError('tiny spconv8x train step: ' + '; '.join(failed))
+    return launches
 
 
 def phase_train_spconv(dev, n_steps, card, n_points=80000):
@@ -3936,35 +3891,21 @@ def _import_cfg(tree):
                                                       opts=opts))
 
 
-def phase_reference_import(dev, card, tree, tmp):
-    """A reference (Lightning) checkpoint into the port at flagship width on
-    spconv8x: a seeded train module's weights written under the
-    reference's names (tests/torch_reference_names.py, the inverse of the
-    rule table) as a ``.ckpt``, imported by ``python -m
-    streamingflow_tpu_torch.tools.convert_checkpoint``, held equal to the
-    seeded weights bit for bit outside the distribution head; one bf16
-    forecast with each set of weights, within the forecast's own
-    run-to-run spread; ``evaluate.main`` on the imported checkpoint over
-    phase cli's tree, K2 and K3 counted; ``distribution_forward`` of the
-    three methods at the flagship present state, card against CPU (1e-5
-    of the scale).  Returns the evaluation's launches."""
-    import io
+def imported_checkpoint(tree, tmp):
+    """A seeded flagship spconv8x train module's weights (torch seed 0)
+    written as a reference (Lightning) checkpoint under the reference's
+    names (tests/torch_reference_names.py, the inverse of the rule table)
+    into ``tmp``, and imported by ``python -m
+    streamingflow_tpu_torch.tools.convert_checkpoint`` with ``_import_cfg``
+    on ``tree``: (the seeded state dict, the tool's report, the imported
+    checkpoint's directory).  On the CPU."""
     import torch
-    import streamingflow_tpu_torch as P
-    from streamingflow_tpu_torch import evaluate as E
-    from streamingflow_tpu_torch.convert import HEAD, state_to_flax
-    from streamingflow_tpu_torch.data import make_batch
-    from streamingflow_tpu_torch.data.dataloader import stop_worker_server
-    from streamingflow_tpu_torch.models import distributions as D
-    from streamingflow_tpu_torch.ops import patch_pool as PP
-    from streamingflow_tpu_torch.ops import winfuse as WF
+    from streamingflow_tpu_torch.convert import state_to_flax
     from streamingflow_tpu_torch.tools import convert_checkpoint as CC
-    from streamingflow_tpu_torch.training.checkpoint import CheckpointManager
     from streamingflow_tpu_torch.training.trainer import (
         StreamingFlowTrainModule)
     sys.path.insert(0, os.path.join(ROOT, 'tests'))
     from torch_reference_names import reference_state_dict
-    t0 = time.perf_counter()
     cfg_file, opts, cfg = _import_cfg(tree)
     torch.manual_seed(0)
     module = StreamingFlowTrainModule(cfg)
@@ -3990,6 +3931,36 @@ def phase_reference_import(dev, card, tree, tmp):
             report['unused_torch'] != report['ignored']['unused_torch']:
         raise AssertionError(f'reference_import: unexpected report {report}'
                              f'\n{run.stdout}')
+    return seeded, report, out_dir
+
+
+def phase_reference_import(dev, card, tree, tmp):
+    """A reference (Lightning) checkpoint into the port at flagship width on
+    spconv8x: a seeded train module's weights written under the
+    reference's names (tests/torch_reference_names.py, the inverse of the
+    rule table) as a ``.ckpt``, imported by ``python -m
+    streamingflow_tpu_torch.tools.convert_checkpoint``, held equal to the
+    seeded weights bit for bit outside the distribution head; one bf16
+    forecast with each set of weights, within the forecast's own
+    run-to-run spread; ``evaluate.main`` on the imported checkpoint over
+    phase cli's tree, K2 and K3 counted; ``distribution_forward`` of the
+    three methods at the flagship present state, card against CPU (1e-5
+    of the scale).  Returns the evaluation's launches (K3 by route:
+    bf16, fp32)."""
+    import io
+    import torch
+    import streamingflow_tpu_torch as P
+    from streamingflow_tpu_torch import evaluate as E
+    from streamingflow_tpu_torch.convert import HEAD
+    from streamingflow_tpu_torch.data import make_batch
+    from streamingflow_tpu_torch.data.dataloader import stop_worker_server
+    from streamingflow_tpu_torch.models import distributions as D
+    from streamingflow_tpu_torch.ops import patch_pool as PP
+    from streamingflow_tpu_torch.ops import winfuse as WF
+    from streamingflow_tpu_torch.training.checkpoint import CheckpointManager
+    t0 = time.perf_counter()
+    seeded, report, out_dir = imported_checkpoint(tree, tmp)
+    cfg = _import_cfg(tree)[2]
     imported = CheckpointManager(out_dir).restore_raw()['model']
     compared = 0
     for k, v in seeded.items():
@@ -4034,17 +4005,20 @@ def phase_reference_import(dev, card, tree, tmp):
     del mine, theirs
     torch.cuda.empty_cache()
 
-    # evaluate on the imported checkpoint, K2 and K3 counted around it
-    PP.launches = WF.launches = 0
+    # evaluate on the imported checkpoint, K2 and K3 counted around it (K3
+    # by route: the fp32 points take the fp32 kernels, COMPUTE_DTYPE 'auto')
+    PP.launches = WF.launches = WF.launches_fp32 = 0
     text = io.StringIO()
     try:
         with contextlib.redirect_stdout(text):
             results = E.main(['--checkpoint', out_dir, '--device', str(dev)])
     finally:
         stop_worker_server()
-    launches = {'patch_pool': PP.launches, 'winfuse': WF.launches}
+    launches = {'patch_pool': PP.launches,
+                'winfuse': WF.launches - WF.launches_fp32,
+                'winfuse_fp32': WF.launches_fp32}
     print(text.getvalue(), end='', flush=True)
-    if not all(launches.values()):
+    if not (launches['patch_pool'] and WF.launches):
         raise AssertionError(f'reference_import: evaluate launched '
                              f'{launches}')
 
@@ -4195,7 +4169,7 @@ def main(argv=None):
                                  summary=train_summary)
     planning_launches = phase_planning(dev, args.requests, args.train_steps,
                                        smi, train_summary)
-    phase_train_tiny_spconv(dev)
+    tiny_spconv_launches = phase_train_tiny_spconv(dev)
     spconv_launches = phase_train_spconv(dev, args.train_steps, smi)
     phase_bf16_flagship(dev, smi)
     phase_determinism(dev, smi)
@@ -4217,8 +4191,11 @@ def main(argv=None):
     # steps' winfuse_dgrad and winfuse_wgrad; train_launches for the forward
     # kernels), of the experiment tool (bin_sum_grouped); import_launches:
     # of evaluate on the imported reference checkpoint (phase
-    # reference_import); planning_launches: of phase planning's forecasts
-    # and steps and phase planning_cli's forecasts
+    # reference_import, K3 by route); planning_launches: of phase planning's
+    # forecasts and steps and phase planning_cli's forecasts; the fp32 K3
+    # rows (3xTF32): the forward's of the imported checkpoint's evaluation,
+    # d feats' and d weights' of the tiny fp32 spconv8x step (phase
+    # train_tiny_spconv), whose forward launches are step_launches
     kernels = [
         dict(name='bin_sum', route='cuda',
              source='streamingflow_tpu_torch/csrc/bin_sum.cu',
@@ -4243,6 +4220,7 @@ def main(argv=None):
              launches=launches['winfuse'],
              train_launches=spconv_launches['winfuse'],
              import_launches=import_launches['winfuse'],
+             import_launches_fp32=import_launches['winfuse_fp32'],
              **results['winfuse']),
         dict(name='winfuse_dgrad', route='cuda',
              source='streamingflow_tpu_torch/csrc/winfuse.cu',
@@ -4254,6 +4232,22 @@ def main(argv=None):
              replaces='streamingflow_tpu/ops/pallas_winfuse.py:288',
              launches=spconv_launches['winfuse_wgrad'],
              **results['winfuse_wgrad']),
+        dict(name='winfuse_fp32', route='cuda',
+             source='streamingflow_tpu_torch/csrc/winfuse_tf32.cuh',
+             replaces='streamingflow_tpu/ops/pallas_winfuse.py:153',
+             launches=import_launches['winfuse_fp32'],
+             step_launches=tiny_spconv_launches['winfuse_fp32'],
+             **results['winfuse_fp32']),
+        dict(name='winfuse_dgrad_fp32', route='cuda',
+             source='streamingflow_tpu_torch/csrc/winfuse_tf32.cuh',
+             replaces='streamingflow_tpu/ops/pallas_winfuse.py:288',
+             launches=tiny_spconv_launches['winfuse_dgrad_fp32'],
+             **results['winfuse_dgrad_fp32']),
+        dict(name='winfuse_wgrad_fp32', route='cuda',
+             source='streamingflow_tpu_torch/csrc/winfuse_wgrad_tf32.cuh',
+             replaces='streamingflow_tpu/ops/pallas_winfuse.py:288',
+             launches=tiny_spconv_launches['winfuse_wgrad_fp32'],
+             **results['winfuse_wgrad_fp32']),
         *[dict(name=f'{kind}_wide{width}', route='cuda',
                source=f'streamingflow_tpu_torch/csrc/{src}.cu',
                replaces=f'streamingflow_tpu/ops/pallas_winfuse.py:{line}',

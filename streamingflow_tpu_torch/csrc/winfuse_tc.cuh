@@ -1,10 +1,7 @@
 // K3's tensor-core forward kernel at the narrow widths (namespace tc),
-// csrc/winfuse.cu's bf16 route up to 32 channels.  Its W = true
-// instantiations are the design the wide kernels had before their
-// redesign; csrc/winfuse_wide_parent.cu instantiates them, as the
-// yardstick of chip_smoke.py's A/B, and csrc/winfuse.cu does not.
-// Included inside an anonymous namespace that defines kTaps and kMaxSmem,
-// after <cuda_bf16.h>, <cuda_runtime.h> and <stdint.h>.
+// csrc/winfuse.cu's bf16 route up to 32 channels.  Included inside an
+// anonymous namespace that defines kTaps and kMaxSmem, after <cuda_bf16.h>,
+// <cuda_runtime.h> and <stdint.h>.
 namespace tc {
 
 // the products; with the copy warp 9 warps, so a thread may hold more
@@ -13,8 +10,6 @@ constexpr int kConsumerWarps = 8;
 constexpr int kConsumers = 32 * kConsumerWarps;
 constexpr int kThreads = kConsumers + 32;  // and one warp for the copies
 constexpr int kStages = 6;     // ring of staged (tile, tap) steps
-constexpr int kStagesWide = 3;  // the wide kernel's ring (a step carries B)
-constexpr int kWideN = 32;     // output channels a block of the wide kernel
 constexpr int kMaxTile = 32;   // columns of a tile, a lane of the copy warp each
 constexpr int kTail = 4;       // zero rows after a stage's columns
 constexpr int kNoCol = 63;     // column of an item past the tile
@@ -84,28 +79,14 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <bool W>
-__host__ __device__ constexpr int ring_steps() {
-  return W ? kStagesWide : kStages;
-}
 template <int CP>
 __host__ __device__ constexpr size_t stage_bytes(int tile, int nz) {
   return static_cast<size_t>(tile * (nz + 2) + kTail) * Geo<CP>::kPitch;
 }
-// bytes of one tap's B fragments for kWideN output channels (wide kernel)
-template <int CP>
-__host__ __device__ constexpr size_t tap_b_bytes() {
-  return static_cast<size_t>(Geo<CP>::kPad) * kWideN * 2;
-}
-// bytes of one ring step: its staged rows, and in the wide kernel its B
-template <int CP, bool W>
-__host__ __device__ constexpr size_t step_bytes(int tile, int nz) {
-  return stage_bytes<CP>(tile, nz) + (W ? tap_b_bytes<CP>() : 0);
-}
-template <int CP, int NT, bool W>
+template <int CP, int NT>
 __host__ __device__ constexpr size_t smem_bytes(int tile, int nz) {
-  return (W ? 0 : static_cast<size_t>(kTaps) * Geo<CP>::kPad * 8 * NT * 2) +
-         ring_steps<W>() * (step_bytes<CP, W>(tile, nz) + 16 + 4) +
+  return static_cast<size_t>(kTaps) * Geo<CP>::kPad * 8 * NT * 2 +
+         kStages * (stage_bytes<CP>(tile, nz) + 16 + 4) +
          4 * kConsumers * (frags_per_warp<NT>() + 1);
 }
 
@@ -126,14 +107,7 @@ __host__ __device__ constexpr size_t smem_bytes(int tile, int nz) {
 //          c*(nz + 2) + zo (past the tile's items: kNoCol << 16 | the tail)
 //   fmask_s [kConsumerWarps][kFrags] uint32: the columns a fragment's
 //          items lie in
-//
-// W (wide, Cin or Cout past 32; CP 32, 64 or 128, NT 4): no w_s.  Block
-// (x, y) computes output channels kWideN*y .. kWideN*y + 31, and each ring
-// step carries, after its rows, its tap's B fragments for those channels
-// (tap_b_bytes, in w_s's order, one bulk copy by the copy warp's lane 0
-// from wk as the wrapper's wide_tap_weights lays it out); the ring has
-// kStagesWide steps.
-template <int CP, int NT, bool W>
+template <int CP, int NT>
 __global__ void __launch_bounds__(kThreads)
 winfuse_kernel(const __nv_bfloat16* __restrict__ feats,
                const int* __restrict__ src,
@@ -144,14 +118,13 @@ winfuse_kernel(const __nv_bfloat16* __restrict__ feats,
   constexpr int kSteps = G::kSteps;
   constexpr int kPitch = G::kPitch;
   constexpr int kFrags = frags_per_warp<NT>();
-  constexpr int kRing = ring_steps<W>();
+  constexpr int kRing = kStages;
   const int tile = 1 << tile_log2;
   extern __shared__ uint4 smem[];
   uint4* w_s = smem;
-  const int w_vecs = W ? 0 : kTaps * kSteps * (NT / 2) * 32;
+  const int w_vecs = kTaps * kSteps * (NT / 2) * 32;
   unsigned char* rows = reinterpret_cast<unsigned char*>(w_s + w_vecs);
-  const size_t stage = stage_bytes<CP>(tile, nz);
-  const size_t step = step_bytes<CP, W>(tile, nz);
+  const size_t step = stage_bytes<CP>(tile, nz);
   uint64_t* bars = reinterpret_cast<uint64_t*>(rows + kRing * step);
   uint32_t* found_s = reinterpret_cast<uint32_t*>(bars + 2 * kRing);
   int* arow_s = reinterpret_cast<int*>(found_s + kRing);
@@ -189,28 +162,25 @@ winfuse_kernel(const __nv_bfloat16* __restrict__ feats,
     }
   }
 
-  // B fragments of every tap, staged once (the wide kernel's come with
-  // each step).  Lane l's fragment of n-tile nt
+  // B fragments of every tap, staged once.  Lane l's fragment of n-tile nt
   // and k16 step ks holds b0 = B[k0, k0 + 1][n], b1 = B[k0 + 8, k0 + 9][n]
   // with k0 = 16*ks + 2*(l % 4), n = 8*nt + l/4.  wk is read 16 bytes (8 n
   // values of one K row) a load and each value put in its place.
-  if constexpr (!W) {
-    __nv_bfloat16* wb = reinterpret_cast<__nv_bfloat16*>(w_s);
-    for (int e = tid; e < kTaps * G::kPad * NT; e += kThreads) {
-      const uint4 v = __ldg(reinterpret_cast<const uint4*>(wk) + e);
-      const __nv_bfloat16* vals = reinterpret_cast<const __nv_bfloat16*>(&v);
-      const int nt = e % NT;
-      const int kr = e / NT;  // row tap*kPad + kk of wk
-      const int kk = kr % G::kPad;
-      const int kin = kk % 16;
-      const int frag =
-          ((kr / G::kPad * kSteps + kk / 16) * (NT / 2) + nt / 2) * 32;
-      const int word = (nt % 2) * 2 + kin / 8;  // b0 / b1 of n-tile nt
+  __nv_bfloat16* wb = reinterpret_cast<__nv_bfloat16*>(w_s);
+  for (int e = tid; e < kTaps * G::kPad * NT; e += kThreads) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(wk) + e);
+    const __nv_bfloat16* vals = reinterpret_cast<const __nv_bfloat16*>(&v);
+    const int nt = e % NT;
+    const int kr = e / NT;  // row tap*kPad + kk of wk
+    const int kk = kr % G::kPad;
+    const int kin = kk % 16;
+    const int frag =
+        ((kr / G::kPad * kSteps + kk / 16) * (NT / 2) + nt / 2) * 32;
+    const int word = (nt % 2) * 2 + kin / 8;  // b0 / b1 of n-tile nt
 #pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const int ln = frag + 4 * c + (kin % 8) / 2;
-        wb[(ln * 4 + word) * 2 + kin % 2] = vals[c];
-      }
+    for (int c = 0; c < 8; ++c) {
+      const int ln = frag + 4 * c + (kin % 8) / 2;
+      wb[(ln * 4 + word) * 2 + kin % 2] = vals[c];
     }
   }
   // every staged row zero, so every column of every stage starts zero
@@ -229,10 +199,6 @@ winfuse_kernel(const __nv_bfloat16* __restrict__ feats,
     // copy.  A column whose tap is not found keeps stale rows: the
     // consumers read the zero tail in its place.
     const uint32_t row_bytes = nz * kPitch;
-    const uint32_t b_bytes = W ? tap_b_bytes<CP>() : 0;
-    // this block's output channels' B fragments, tap after tap
-    const char* wk_chunk = reinterpret_cast<const char*>(wk) +
-                           static_cast<size_t>(blockIdx.y) * kTaps * b_bytes;
     const bool mine = lane < tile;
     int cur[kTaps], nxt[kTaps];
     int s = 0;
@@ -257,17 +223,12 @@ winfuse_kernel(const __nv_bfloat16* __restrict__ feats,
         __syncwarp();
         if (lane == 0) {
           found_s[b] = found;
-          mbar_arrive_tx(full_u32 + 8 * b,
-                         __popc(found) * row_bytes + b_bytes);
+          mbar_arrive_tx(full_u32 + 8 * b, __popc(found) * row_bytes);
         }
         __syncwarp();
         if (from >= 0)
           bulk_copy(base + (lane * (nz + 2) + 1) * kPitch,
                     feats + static_cast<size_t>(from) * nz * CP, row_bytes,
-                    full_u32 + 8 * b);
-        if (W && lane == 0)
-          bulk_copy(base + static_cast<uint32_t>(stage),
-                    wk_chunk + static_cast<size_t>(k) * b_bytes, b_bytes,
                     full_u32 + 8 * b);
       }
     }
@@ -309,10 +270,7 @@ winfuse_kernel(const __nv_bfloat16* __restrict__ feats,
                        ? base + (e & 0xffff) * kPitch
                        : tail;
         }
-        const uint4* wt =
-            (W ? reinterpret_cast<const uint4*>(rows + b * step + stage)
-               : w_s + k * kSteps * (NT / 2) * 32) +
-            lane;
+        const uint4* wt = w_s + k * kSteps * (NT / 2) * 32 + lane;
         // the fragments of k16 step ks: B for two n-tiles a uint4, and A
         // of each live fragment; this lane's 8-value chunk of K is staged
         // row + kk / CP, chunk (kk % CP) / 8 (past 3*CP, CP = 8: zeros)
@@ -353,7 +311,6 @@ winfuse_kernel(const __nv_bfloat16* __restrict__ feats,
     }
     // the tile's outputs, every item
     const int v0 = (blockIdx.x + lt * gridDim.x) * tile;
-    const int j0 = W ? kWideN * blockIdx.y : 0;
 #pragma unroll
     for (int f = 0; f < kFrags; ++f) {
 #pragma unroll
@@ -363,7 +320,7 @@ winfuse_kernel(const __nv_bfloat16* __restrict__ feats,
         __nv_bfloat16* o = out + (static_cast<size_t>(v0) * nz + it) * cout;
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
-          const int jj = j0 + 8 * nt + 2 * q;
+          const int jj = 8 * nt + 2 * q;
           const float x0 = acc[f][nt][2 * h], x1 = acc[f][nt][2 * h + 1];
           if (jj + 1 < cout && cout % 2 == 0) {
             *reinterpret_cast<__nv_bfloat162*>(o + jj) =
@@ -384,41 +341,37 @@ winfuse_kernel(const __nv_bfloat16* __restrict__ feats,
 
 // columns of a tile: the most (a power of 2, <= kMaxTile) whose items fit
 // the consumers' fragments and whose ring fits in shared memory
-template <int CP, int NT, bool W>
+template <int CP, int NT>
 int tile_columns(int nz) {
   int tile = kMaxTile;
   while (tile > 1 &&
          ((tile * nz + 15) / 16 > kConsumerWarps * frags_per_warp<NT>() ||
-          smem_bytes<CP, NT, W>(tile, nz) > kMaxSmem))
+          smem_bytes<CP, NT>(tile, nz) > kMaxSmem))
     tile /= 2;
   return tile;
 }
 
-template <int CP, int NT, bool W = false>
+template <int CP, int NT>
 cudaError_t launch(const void* feats, const int* src, const void* wk,
                    void* out, int n_out, int nz, int cout, int sms,
                    cudaStream_t stream) {
-  const int tile = tile_columns<CP, NT, W>(nz);
+  const int tile = tile_columns<CP, NT>(nz);
   int tile_log2 = 0;
   while ((1 << tile_log2) < tile) ++tile_log2;
-  const size_t smem = smem_bytes<CP, NT, W>(tile, nz);
+  const size_t smem = smem_bytes<CP, NT>(tile, nz);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      winfuse_kernel<CP, NT, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      winfuse_kernel<CP, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   int per_sm = 0;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, winfuse_kernel<CP, NT, W>, kThreads, smem)) !=
-      cudaSuccess)
+           &per_sm, winfuse_kernel<CP, NT>, kThreads, smem)) != cudaSuccess)
     return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  // the wide kernel: one block row a kWideN-channel chunk of the output
-  const int chunks = W ? (cout + kWideN - 1) / kWideN : 1;
   const int tiles = (n_out + tile - 1) / tile;
-  const int slots = sms * per_sm / chunks > 0 ? sms * per_sm / chunks : 1;
-  const int blocks = tiles < slots ? tiles : slots;
-  winfuse_kernel<CP, NT, W><<<dim3(blocks, chunks), kThreads, smem, stream>>>(
+  const int blocks = tiles < sms * per_sm ? tiles : sms * per_sm;
+  winfuse_kernel<CP, NT><<<blocks, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(feats), src,
       static_cast<const __nv_bfloat16*>(wk),
       static_cast<__nv_bfloat16*>(out), n_out, nz, cout, tile_log2);

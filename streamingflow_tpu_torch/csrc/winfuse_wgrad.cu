@@ -56,8 +56,11 @@
 //     partial; wgrad_reduce adds the partials in block order.  No float
 //     atomics, and the order of every sum is fixed, so the gradient is the
 //     same from run to run.
-// fp32 (the exact check path): TF32 would miss the 1e-4 bar, so fp32 keeps
-// the CUDA-core kernel of the first port, below.
+// fp32 (evaluating and training from fp32 points, the chip checks at 1e-4
+// of the fp64 sums): the same design on the tensor cores in 3xTF32, a k8
+// step 8 listed items (csrc/winfuse_wgrad_tf32.cuh); the same bits every
+// run.  One-pass TF32 would miss the bar; the fp32 inputs, sums and dW stay
+// fp32, and TF32 stays off elsewhere (device.pin_tf32).
 //
 // Past 32 channels in or out (stages 3 and 4 on columns):
 //   - bf16 (namespace wide): one warp a tap would hold 9 x 384 x 128 fp32
@@ -77,8 +80,9 @@
 //     every run.  What bounds it: the listed items' rows from L2, staged
 //     once for each of the 9 or 27 pieces, and one pass over the whole
 //     cotangent for the lists.
-//   - fp32: block (x, y) owns the 32 x 32 chunk y of (Cin, Cout), its units
-//     over that chunk; the partials still add in block order.
+//   - fp32 (the first port's CUDA-core design, below): block (x, y) owns
+//     the 32 x 32 chunk y of (Cin, Cout), its units over that chunk; the
+//     partials still add in block order.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -104,7 +108,8 @@ constexpr int kThreads = 768;          // threads a block, at most
 constexpr int kMaxTv = 32;             // columns a chunk, at most
 constexpr int kSmemBudget = 96 * 1024;  // bytes of a chunk's staging
 
-// The first design, on the CUDA cores:
+// The first port's design, on the CUDA cores, run past 32 channels in or
+// out:
 //   - A block walks chunks of TV output columns (grid-stride).  It stages
 //     the chunk's cotangent rows in shared memory (one contiguous read),
 //     marks the (column, z) items whose row is not all zero and lists them
@@ -113,15 +118,14 @@ constexpr int kSmemBudget = 96 * 1024;  // bytes of a chunk's staging
 //     the tap and an active item, between zero z-halo rows, so item
 //     (c, zo) of z tap tz reads staged row zo + tz of column c.  A warp
 //     stages a column, 16 bytes (4 values) a lane.
-//   - Each thread owns one (tz, i, 4 output channels) unit of every tap:
-//     36 fp32 sums in registers for the whole run.  Thread groups of
-//     larger blocks (narrow widths) take every groups-th item.
+//   - Block (x, y) owns the 32 x 32 chunk y of (Cin, Cout) (chunk
+//     y % ceil(Cin / 32) of Cin, y / ceil(Cin / 32) of Cout); the staging
+//     keeps whole rows.  Each thread owns one (tz, i, 4 output channels)
+//     unit of the chunk for every tap: 36 fp32 sums in registers for the
+//     whole run.  Thread groups of larger blocks take every groups-th item.
 //   - At the end the groups' sums are added in a fixed order in shared
-//     memory and each block writes one partial (27, Cin, Cout).
-//   - W (wide: Cin or Cout past 32): block (x, y) owns the 32 x 32 chunk y
-//     of (Cin, Cout) (chunk y % ceil(Cin / 32) of Cin, y / ceil(Cin / 32)
-//     of Cout), its units over that chunk; the staging keeps whole rows.
-//     Up to 32 channels (W false) the chunk is the whole of (Cin, Cout).
+//     memory and each block writes its chunk of one partial (27, Cin,
+//     Cout).
 //
 // Shared memory of a chunk of tv columns (rows = nz + 2):
 //   g_s    [tv * nz][cout4] cotangent rows, channels past cout zero
@@ -132,7 +136,6 @@ constexpr int kSmemBudget = 96 * 1024;  // bytes of a chunk's staging
 //   src_s  [9][tv] the chunk's source row of each tap, -1 if not taken
 //   colf_s [tv] 1 where the column has an active item
 //   count_s     the number of active items
-template <bool W>
 __global__ void __launch_bounds__(kThreads)
 wgrad_kernel(const float* __restrict__ feats, const int* __restrict__ src,
              const float* __restrict__ g, float* __restrict__ part,
@@ -140,16 +143,16 @@ wgrad_kernel(const float* __restrict__ feats, const int* __restrict__ src,
              int vec_f, int vec_g) {
   extern __shared__ float4 smem4[];
   const int cout4 = (cout + 3) & ~3;  // the staged cotangent rows' pitch
-  // this block's chunk of (Cin, Cout): all of it unless W
-  const int a_chunks = W ? (cin + 31) / 32 : 1;
-  const int i0 = W ? 32 * (blockIdx.y % a_chunks) : 0;
-  const int j0 = W ? 32 * (blockIdx.y / a_chunks) : 0;
-  const int cin_c = W ? min(32, cin - i0) : cin;
-  const int cout_c = W ? min(32, cout - j0) : cout;
+  // this block's chunk of (Cin, Cout)
+  const int a_chunks = (cin + 31) / 32;
+  const int i0 = 32 * (blockIdx.y % a_chunks);
+  const int j0 = 32 * (blockIdx.y / a_chunks);
+  const int cin_c = min(32, cin - i0);
+  const int cout_c = min(32, cout - j0);
   const int j4n = ((cout_c + 3) & ~3) >> 2;
   const int units = 3 * cin_c * j4n;
-  // the launch's units a group: those of a whole 32 x 32 chunk if W
-  const int units_pad = W ? blockDim.x / groups : (units + 31) & ~31;
+  // the launch's units a group: those of a whole 32 x 32 chunk
+  const int units_pad = blockDim.x / groups;
   const int rows = nz + 2;
   const int n_items = tv * nz;
   float* g_s = reinterpret_cast<float*>(smem4);
@@ -301,13 +304,7 @@ wgrad_kernel(const float* __restrict__ feats, const int* __restrict__ src,
         for (int jj = 0; jj < 4; ++jj) {
           const int j = j4 * 4 + jj;
           if (j >= cout_c) continue;
-          if (!W) {
-            const int e = ((3 * k + tz) * cin + ci) * cout + j;
-            if (groups == 1)
-              out[e] = acc[k][jj];
-            else
-              red_s[e] += acc[k][jj];
-          } else if (groups == 1) {
+          if (groups == 1) {
             out[((3 * k + tz) * cin + i0 + ci) * cout + j0 + j] =
                 acc[k][jj];
           } else {
@@ -317,9 +314,7 @@ wgrad_kernel(const float* __restrict__ feats, const int* __restrict__ src,
     }
     if (groups > 1) __syncthreads();
   }
-  if (groups > 1 && !W)
-    for (int e = tid; e < n_w; e += nthr) out[e] = red_s[e];
-  else if (groups > 1)
+  if (groups > 1)
     for (int e = tid; e < n_wc; e += nthr) {
       const int j = e % cout_c;
       const int ci_e = (e / cout_c) % cin_c;
@@ -328,8 +323,7 @@ wgrad_kernel(const float* __restrict__ feats, const int* __restrict__ src,
     }
 }
 
-// launches wgrad_kernel<W>; *grid gets the number of partials it writes
-template <bool W>
+// launches wgrad_kernel; *grid gets the number of partials it writes
 cudaError_t launch(const float* feats, const int* src, const float* g,
                    float* part, int max_parts, int n_out, int nz, int cin,
                    int cout, int sms, cudaStream_t st, int* grid_out) {
@@ -358,15 +352,15 @@ cudaError_t launch(const float* feats, const int* src, const float* g,
     smem = n_wc * sizeof(float);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      wgrad_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   int per_sm = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, wgrad_kernel<W>, threads, smem);
+      &per_sm, wgrad_kernel, threads, smem);
   if (err != cudaSuccess) return err;
   const int n_chunks = (n_out + tv - 1) / tv;
-  const int pairs = W ? ((cin + 31) / 32) * ((cout + 31) / 32) : 1;
+  const int pairs = ((cin + 31) / 32) * ((cout + 31) / 32);
   int grid = (per_sm > 0 ? per_sm : 1) * sms / pairs;
   if (grid < 1) grid = 1;
   if (grid > max_parts) grid = max_parts;
@@ -379,7 +373,7 @@ cudaError_t launch(const float* feats, const int* src, const float* g,
                     reinterpret_cast<uintptr_t>(feats) % 16 == 0;
   const int vec_g = cout % 4 == 0 && (nz * cout) % 4 == 0 &&
                     reinterpret_cast<uintptr_t>(g) % 16 == 0;
-  wgrad_kernel<W><<<dim3(grid, pairs), threads, smem, st>>>(
+  wgrad_kernel<<<dim3(grid, pairs), threads, smem, st>>>(
       feats, src, g, part, n_out, nz, cin, cout, tv, groups, vec_f, vec_g);
   return cudaGetLastError();
 }
@@ -389,6 +383,10 @@ cudaError_t launch(const float* feats, const int* src, const float* g,
 // ------------------------------------------------------------------ bf16
 
 #include "winfuse_wgrad_tc.cuh"
+
+// ------------------------------------------------------------ fp32, 3xTF32
+
+#include "winfuse_wgrad_tf32.cuh"
 
 // ------------------------------------------------------------- bf16, wide
 
@@ -751,28 +749,45 @@ cudaError_t reduce(const float* part, void* out, int n_parts, int n_w,
 
 }  // namespace
 
-// feats (R, nz*cin) and g (n_out, nz*cout) fp32, src (9, n_out) int32 (-1:
+// feats (R, nz*cp) and g (n_out, nz*np) fp32, src (9, n_out) int32 (-1:
 // tap not taken), scratch max_parts x 27*cin*cout fp32 partials, out
-// (27, cin, cout) fp32.  1 <= cin, cout <= 128, 1 <= nz <= 256.  Returns a
-// cudaError_t (0 = launched).
+// (27, cin, cout) fp32.  1 <= nz <= 256.  Narrow (cin, cout <= 32): cp and
+// np the channel pitches 8, 16 or 32 (channels past cin, cout zero), both
+// 16-byte aligned.  Wide (cin or cout past 32, up to 128): cp = cin, np =
+// cout.  Returns a cudaError_t (0 = launched).
 extern "C" int sf_winfuse_wgrad_fp32(const void* feats, const int* src,
                                      const void* g, void* scratch,
                                      int max_parts, void* out, int n_out,
-                                     int nz, int cin, int cout,
-                                     void* stream) {
+                                     int nz, int cp, int cin, int np,
+                                     int cout, void* stream) {
+  const bool is_wide = cin > 32 || cout > 32;
+  auto pitch_ok = [](int p) { return p == 8 || p == 16 || p == 32; };
   if (cin < 1 || cin > 128 || cout < 1 || cout > 128 || nz < 1 ||
-      nz > 256 || max_parts < 1 || n_out < 0)
+      nz > 256 || max_parts < 1 || n_out < 0 ||
+      (is_wide ? cp != cin || np != cout
+               : !pitch_ok(cp) || !pitch_ok(np) || cin > cp || cout > np))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (!is_wide && (reinterpret_cast<uintptr_t>(feats) % 16 != 0 ||
+                   reinterpret_cast<uintptr_t>(g) % 16 != 0))
+    return static_cast<int>(cudaErrorMisalignedAddress);
   int sms = 0, grid = 0;
   cudaError_t err = sm_count(&sms);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* part = static_cast<float*>(scratch);
-  const auto launch = cin > 32 || cout > 32 ? fp32::launch<true>
-                                             : fp32::launch<false>;
-  if (err == cudaSuccess)
-    err = launch(static_cast<const float*>(feats), src,
-                 static_cast<const float*>(g), part, max_parts, n_out, nz,
-                 cin, cout, sms, st, &grid);
+  const float* f = static_cast<const float*>(feats);
+  const float* gf = static_cast<const float*>(g);
+  if (err == cudaSuccess && is_wide)
+    err = fp32::launch(f, src, gf, part, max_parts, n_out, nz, cin, cout,
+                       sms, st, &grid);
+  else if (err == cudaSuccess && cp == 8)
+    err = tf32::by_np<8>(np, f, src, gf, part, max_parts, n_out, nz, cin,
+                         cout, sms, st, &grid);
+  else if (err == cudaSuccess && cp == 16)
+    err = tf32::by_np<16>(np, f, src, gf, part, max_parts, n_out, nz, cin,
+                          cout, sms, st, &grid);
+  else if (err == cudaSuccess)
+    err = tf32::by_np<32>(np, f, src, gf, part, max_parts, n_out, nz, cin,
+                          cout, sms, st, &grid);
   if (err == cudaSuccess) err = reduce(part, out, grid, 27 * cin * cout, st);
   return static_cast<int>(err);
 }

@@ -1,9 +1,5 @@
 // K3's tensor-core d weights at the narrow widths (namespace tc),
-// csrc/winfuse_wgrad.cu's bf16 route up to 32 channels.  Its W = true
-// instantiation is the design the wide d weights had before their
-// redesign; csrc/winfuse_wide_parent.cu instantiates it, as the yardstick
-// of chip_smoke.py's A/B, and csrc/winfuse_wgrad.cu does not.  Included
-// inside an anonymous namespace that defines kTaps and kMaxSmem, after
+// csrc/winfuse_wgrad.cu's bf16 route up to 32 channels.  Included inside an anonymous namespace that defines kTaps and kMaxSmem, after
 // <cuda_bf16.h>, <cuda_runtime.h>, <stdint.h> and WINFUSE_WGRAD_PART.
 namespace tc {
 
@@ -100,14 +96,12 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// grow: bytes of a staged cotangent row (G::kGRow, or the wide kernel's
-// whole row)
 template <int CP, int NP>
-__host__ __device__ constexpr size_t smem_bytes(int tv, int nz, int grow) {
+__host__ __device__ constexpr size_t smem_bytes(int tv, int nz) {
   using G = Geo<CP, NP>;
   const size_t items = static_cast<size_t>(tv) * nz;
   const size_t words = (items + 31) / 32;
-  return 2 * items * grow + kWarps * kStages * 16 * G::kAPitch +
+  return 2 * items * G::kGRow + kWarps * kStages * 16 * G::kAPitch +
          kZeroBytes + 16 + 4 * (items + 2 * words + kTaps * tv + 1);
 }
 
@@ -124,30 +118,17 @@ __host__ __device__ constexpr size_t smem_bytes(int tv, int nz, int grow) {
 //   base_s [words] listed items before word w
 //   src_s  [9][tv] the chunk's source row of each tap, -1 if not taken
 //   count_s        the number of listed items
-//
-// W (wide, Cin or Cout past 32; CP = NP = 32): the source rows have fpitch
-// channels and the cotangent rows gpitch (32, 64 or 128), and block (x, y)
-// computes the 32 x 32 chunk y of (Cin, Cout) of every tap: chunk
-// y % ceil(Cin / 32) of the source channels, y / ceil(Cin / 32) of the
-// output channels.  g_s holds whole cotangent rows; an item is listed
-// where the block's 32 channels of its row are not all zero.
-template <int CP, int NP, bool W>
+template <int CP, int NP>
 __global__ void __launch_bounds__(kThreads, 1)
 wgrad_mma(const __nv_bfloat16* __restrict__ feats,
           const int* __restrict__ src, const __nv_bfloat16* __restrict__ g,
           float* __restrict__ part, int n_out, int nz, int cin, int cout,
-          int tv, int fpitch, int gpitch) {
+          int tv) {
   using G = Geo<CP, NP>;
   extern __shared__ uint4 smem[];
   const int n_items = tv * nz;
   const int n_words = (n_items + 31) / 32;
-  // bytes of a cotangent row, channels of a source row, and the block's
-  // first source and output channel
-  const int grow = W ? 2 * gpitch : G::kGRow;
-  const int fp = W ? fpitch : CP;
-  const int a_chunks = W ? (cin + 31) / 32 : 1;
-  const int i0 = W ? 32 * (blockIdx.y % a_chunks) : 0;
-  const int j0 = W ? 32 * (blockIdx.y / a_chunks) : 0;
+  constexpr int grow = G::kGRow;  // bytes of a cotangent row
   const uint32_t g_bytes = static_cast<uint32_t>(n_items) * grow;
   unsigned char* g_s = reinterpret_cast<unsigned char*>(smem);
   unsigned char* a_s = g_s + 2 * static_cast<size_t>(g_bytes);
@@ -184,7 +165,7 @@ wgrad_mma(const __nv_bfloat16* __restrict__ feats,
     if (k == 0) {
       const uint32_t bytes = static_cast<uint32_t>(nc) * nz * grow;
       const char* from = reinterpret_cast<const char*>(
-          g + static_cast<size_t>(c) * tv * nz * (W ? gpitch : NP));
+          g + static_cast<size_t>(c) * tv * nz * NP);
       // the block's reads of this buffer (the chunk before last) come
       // before the copy engine's writes
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -247,7 +228,7 @@ wgrad_mma(const __nv_bfloat16* __restrict__ feats,
       bool any = false;
       if (it < n_live) {
         const uint4* r =
-            reinterpret_cast<const uint4*>(gb + it * grow + 2 * j0);
+            reinterpret_cast<const uint4*>(gb + it * grow);
 #pragma unroll
         for (int q = 0; q < NP / 8; ++q) {
           const uint4 x = r[q];
@@ -305,7 +286,7 @@ wgrad_mma(const __nv_bfloat16* __restrict__ feats,
           const int z = (e & 0xffff) - 1 + piece / G::kRowPieces;
           if (s < 0 || z < 0 || z >= nz) continue;
           cp_async16(buf + il * G::kAPitch + piece * 16,
-                     feats + (static_cast<size_t>(s) * nz + z) * fp + i0 +
+                     feats + (static_cast<size_t>(s) * nz + z) * CP +
                          (piece % G::kRowPieces) * 8);
         }
       }
@@ -343,7 +324,7 @@ wgrad_mma(const __nv_bfloat16* __restrict__ feats,
       uint32_t brow = zero_u32;
       if (a0 + ib < n_act) {
         const int e = item_s[a0 + ib];
-        brow = gb_u32 + ((e >> 16) * nz + (e & 0xffff)) * grow + 2 * j0;
+        brow = gb_u32 + ((e >> 16) * nz + (e & 0xffff)) * grow;
       }
       uint32_t bf[G::kNT][2];
       if constexpr (G::kNT == 1) {
@@ -378,8 +359,8 @@ wgrad_mma(const __nv_bfloat16* __restrict__ feats,
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const int m = 16 * mt + (lane >> 2) + 8 * (r >> 1);
-        const int j = j0 + 8 * nt + 2 * (lane & 3) + (r & 1);
-        const int tz = m / CP, i = i0 + m % CP;
+        const int j = 8 * nt + 2 * (lane & 3) + (r & 1);
+        const int tz = m / CP, i = m % CP;
         if (m < G::kM && i < cin && j < cout)
           out[((3 * k + tz) * cin + i) * cout + j] = acc[mt][nt][r];
       }
@@ -387,44 +368,37 @@ wgrad_mma(const __nv_bfloat16* __restrict__ feats,
 
 // columns of a chunk: the most (<= kMaxTv) whose staging fits
 template <int CP, int NP>
-int chunk_columns(int nz, int grow) {
+int chunk_columns(int nz) {
   int tv = kMaxTv;
-  while (tv > 1 && smem_bytes<CP, NP>(tv, nz, grow) > kMaxSmem) --tv;
+  while (tv > 1 && smem_bytes<CP, NP>(tv, nz) > kMaxSmem) --tv;
   return tv;
 }
 
-// W: fpitch, gpitch the rows' channels (CP = NP = 32), one block row a
-// 32 x 32 chunk of (Cin, Cout)
-template <int CP, int NP, bool W = false>
+template <int CP, int NP>
 cudaError_t launch(const void* feats, const int* src, const void* g,
                    float* part, int max_parts, int n_out, int nz, int cin,
-                   int cout, int sms, cudaStream_t st, int* grid_out,
-                   int fpitch = CP, int gpitch = NP) {
-  const int grow = W ? 2 * gpitch : Geo<CP, NP>::kGRow;
-  const int tv = chunk_columns<CP, NP>(nz, grow);
-  const size_t smem = smem_bytes<CP, NP>(tv, nz, grow);
+                   int cout, int sms, cudaStream_t st, int* grid_out) {
+  const int tv = chunk_columns<CP, NP>(nz);
+  const size_t smem = smem_bytes<CP, NP>(tv, nz);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      wgrad_mma<CP, NP, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      wgrad_mma<CP, NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   int per_sm = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, wgrad_mma<CP, NP, W>, kThreads, smem);
+      &per_sm, wgrad_mma<CP, NP>, kThreads, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const int n_chunks = (n_out + tv - 1) / tv;
-  const int pairs = W ? ((cin + 31) / 32) * ((cout + 31) / 32) : 1;
-  int grid = per_sm * sms / pairs;
-  if (grid < 1) grid = 1;
+  int grid = per_sm * sms;
   if (grid > max_parts) grid = max_parts;
   if (grid > n_chunks) grid = n_chunks;
   *grid_out = grid;
   if (grid == 0) return cudaSuccess;
-  wgrad_mma<CP, NP, W><<<dim3(grid, pairs), kThreads, smem, st>>>(
+  wgrad_mma<CP, NP><<<grid, kThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(feats), src,
-      static_cast<const __nv_bfloat16*>(g), part, n_out, nz, cin, cout, tv,
-      fpitch, gpitch);
+      static_cast<const __nv_bfloat16*>(g), part, n_out, nz, cin, cout, tv);
   return cudaGetLastError();
 }
 

@@ -57,19 +57,15 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     'patch_pool_ablation': {
         'sf_patch_pool_row_atomics':
             [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
-    'winfuse': {'sf_winfuse_fp32': [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-                'sf_winfuse_bf16': [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I,
+    'winfuse': {'sf_winfuse_bf16': [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I,
                                     _P]},
+    'winfuse_fp32': {'sf_winfuse_fp32': [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                         _P]},
     'winfuse_wgrad': {
         'sf_winfuse_wgrad_fp32': [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
-                                  _P],
+                                  _I, _I, _P],
         'sf_winfuse_wgrad_bf16': [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
                                   _I, _I, _I, _P]},
-    # the wide bf16 kernels before their redesign: chip_smoke.py's A/B
-    'winfuse_wide_parent': {
-        'sf_winfuse_bf16_parent': [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-        'sf_winfuse_wgrad_bf16_parent': [_P, _P, _P, _P, _I, _P, _I, _I, _I,
-                                         _I, _I, _I, _P]},
 }
 
 _LIBS: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}

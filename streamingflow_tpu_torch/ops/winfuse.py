@@ -17,11 +17,15 @@ rule as an effective ``found`` mask and the same count, so the port computes
 the same function, drops included, without the windows.
 
 On a CUDA tensor :func:`subm_conv_winfuse` launches the hand-written kernel
-csrc/winfuse.cu; on a CPU tensor it takes the plain PyTorch version
-:func:`subm_conv_plain`.  There is no fallback from the kernel to the plain
-version.  bf16 features go to the tensor-core kernel, which takes its
-inputs as :func:`pitch_rows` and :func:`tap_weights` prepare them; fp32
-features go to the exact CUDA-core kernel (:func:`route`).
+csrc/winfuse.cu (bf16) or csrc/winfuse_fp32.cu (fp32); on a CPU tensor it
+takes the plain PyTorch version :func:`subm_conv_plain`.  There is no
+fallback from the kernel to the plain version.  bf16 features go to the
+tensor-core kernel, which takes its inputs as :func:`pitch_rows` and
+:func:`tap_weights` prepare them; fp32 features up to 32 channels to the
+tensor cores in 3xTF32 (each operand split into two TF32 pieces, three
+products a pair: fp32's order of error), on :func:`pitch_rows` and
+:func:`tf32_tap_weights`; fp32 past 32 channels to the CUDA cores
+(:func:`route`).
 
 The gradient (:class:`WinfuseConv`) takes the taps its caller gives as
 ``grad_found``.  For 'winfuse' that is the JAX package's ``_winfuse_bwd``:
@@ -33,8 +37,9 @@ column_geometry).  d feats
 (:func:`subm_conv_dgrad`) is the same conv run backwards: K3's forward on
 the cotangent over the reversed map (:func:`reverse_map`) with the weights
 flipped and transposed.  d weights (:func:`subm_conv_wgrad`) is the kernel
-csrc/winfuse_wgrad.cu on the card (bf16 on the tensor cores, its rows as
-:func:`wgrad_rows` prepares them; fp32 on the CUDA cores) and
+csrc/winfuse_wgrad.cu on the card (its rows as :func:`wgrad_rows` prepares
+them: bf16 on the tensor cores, fp32 in 3xTF32; fp32 past 32 channels on
+the CUDA cores) and
 :func:`subm_conv_wgrad_plain` on the CPU.
 """
 from __future__ import annotations
@@ -51,17 +56,20 @@ from .voxelize import LARGE_ID
 # NARROW_CHANNELS in or out the wide kernels run (stages 3 and 4 on columns)
 MAX_CHANNELS = 128
 NARROW_CHANNELS = 32
-# z the kernels take (the fp32 kernel gives each output z of a tile of
-# columns one thread)
+# z the kernels take
 MAX_NZ = 256
 
 # kernel launches since the last reset (chip_smoke.py reads them): the
 # forward, d feats (the forward's kernels over the reversed map) and d
-# weights; the *_wide dicts count those of them that ran the wide kernels,
-# by the wider side's pitch (64 at stage 3, 128 at stage 4)
+# weights, every route; the *_fp32 counts those of them on fp32 rows (bf16:
+# the rest); the *_wide dicts those that ran the wide kernels, by the
+# wider side's pitch (64 at stage 3, 128 at stage 4)
 launches = 0
 launches_dgrad = 0
 launches_wgrad = 0
+launches_fp32 = 0
+launches_dgrad_fp32 = 0
+launches_wgrad_fp32 = 0
 launches_wide = {}
 launches_dgrad_wide = {}
 launches_wgrad_wide = {}
@@ -185,9 +193,10 @@ def _conv(feats, nbr, found, weights, nz):
     if feats.device.type != 'cuda':
         raise ValueError(f'subm_conv_winfuse: unsupported device '
                          f'{feats.device}')
-    global launches
+    global launches, launches_fp32
     out = _winfuse_cuda(feats, torch.where(found, nbr, -1), weights, nz)
     launches += 1
+    launches_fp32 += feats.dtype == torch.float32
     _count_wide(launches_wide, weights.shape[1], weights.shape[2])
     return out
 
@@ -275,7 +284,7 @@ def subm_conv_dgrad(g: torch.Tensor, src_t: torch.Tensor,
     which is the forward conv on g over the reversed map with the flipped
     weights: K3's own kernels on the card (Cin' = Cout, Cout' = Cin), the
     plain version on the CPU.  (R, nz*Cin) in g's type."""
-    global launches_dgrad
+    global launches_dgrad, launches_dgrad_fp32
     w = flipped_weights(weights)
     if g.device.type == 'cpu':
         return subm_conv_plain(g, src_t.clamp(min=0), src_t >= 0, w, nz)
@@ -283,6 +292,7 @@ def subm_conv_dgrad(g: torch.Tensor, src_t: torch.Tensor,
         raise ValueError(f'subm_conv_dgrad: unsupported device {g.device}')
     out = _winfuse_cuda(g, src_t, w, nz)
     launches_dgrad += 1
+    launches_dgrad_fp32 += g.dtype == torch.float32
     _count_wide(launches_dgrad_wide, w.shape[1], w.shape[2])
     return out
 
@@ -327,10 +337,10 @@ def subm_conv_wgrad(feats: torch.Tensor, nbr: torch.Tensor,
     the exact fp32 sum, within JAX's own rounding of it.
 
     On the card the kernel csrc/winfuse_wgrad.cu, the same sums in a fixed
-    order (no float atomics: the same gradient from run to run): bf16 as
-    one GEMM a tap on the tensor cores, its depth the cotangent's nonzero
-    (column, z) rows; fp32 on the CUDA cores.  On the CPU
-    :func:`subm_conv_wgrad_plain`."""
+    order (no float atomics: the same gradient from run to run): one GEMM a
+    tap on the tensor cores, its depth the cotangent's nonzero (column, z)
+    rows, bf16 or fp32 in 3xTF32 (fp32 past 32 channels on the CUDA
+    cores).  On the CPU :func:`subm_conv_wgrad_plain`."""
     if feats.device.type == 'cpu':
         return subm_conv_wgrad_plain(feats, nbr, found, g, nz)
     if feats.device.type != 'cuda':
@@ -339,10 +349,14 @@ def subm_conv_wgrad(feats: torch.Tensor, nbr: torch.Tensor,
     return _wgrad_cuda(feats, nbr, found, g, nz)
 
 
-def route(dtype: torch.dtype) -> str:
-    """Which units compute the kernel's products for features of ``dtype``."""
-    return ('tensor cores (mma.sync bf16, fp32 sums)'
-            if dtype == torch.bfloat16 else 'CUDA cores (fp32 FMA)')
+def route(dtype: torch.dtype, cin: int = 1, cout: int = 1) -> str:
+    """Which units compute the kernel's products for features of ``dtype``
+    at these widths."""
+    if dtype == torch.bfloat16:
+        return 'tensor cores (mma.sync bf16, fp32 sums)'
+    if is_wide(cin, cout):
+        return 'CUDA cores (fp32 FMA)'
+    return 'tensor cores (mma.sync 3xTF32, fp32 sums)'
 
 
 def channel_pitch(cin: int) -> int:
@@ -369,6 +383,47 @@ def tap_weights(weights: torch.Tensor, cp: int) -> torch.Tensor:
     b[:, :3 * cp].view(9, 3, cp, n)[:, :, :cin, :cout] = \
         weights.reshape(9, 3, cin, cout)
     return b
+
+
+def tf32_channels(cp: int) -> torch.Tensor:
+    """(4, 2 * cp / 8) int64: channel ch[t, w] of a z row that lane t (of
+    the four lanes of a fragment row) of the 3xTF32 forward holds as its
+    w-th value, the kernel's permutation of K.  In k8 step s of a z tap
+    the lane's a0 is value s and a2 value cp / 8 + s: cp 32 reads 16-byte
+    chunks t and t + 4, cp 16 chunk t, cp 8 the 8 bytes at 8 t."""
+    t = torch.arange(4).view(4, 1)
+    w = torch.arange(2 * (cp // 8)).view(1, -1)
+    if cp == 32:
+        return 4 * t + w % 4 + 16 * (w // 4)
+    return (4 if cp == 16 else 2) * t + w
+
+
+def tf32_tap_weights(weights: torch.Tensor, cp: int) -> torch.Tensor:
+    """(27, Cin, Cout) -> the 3xTF32 forward's B, fp32 (9, 3*cp/8, n/16, 32,
+    4) with n = 16 if Cout <= 16 else 32: lane l = 4 g + t of k8 step ks =
+    tz*S + s (S = cp / 8) holds, for n-tile pair p,
+
+        (b0, b1 of n-tile 2p, b0, b1 of n-tile 2p + 1),
+        b0 = weights[3k + tz, ch[t, s], 8 nt + g],
+        b1 = weights[3k + tz, ch[t, S + s], 8 nt + g]
+
+    (ch = :func:`tf32_channels`; zero past Cin and Cout), in the order the
+    kernel stages them.  Unrounded fp32: the kernel splits them."""
+    _, cin, cout = weights.shape
+    n = 16 if cout <= 16 else 32
+    sz = cp // 8
+    b = weights.new_zeros(9, 3, cp, n, dtype=torch.float32)
+    b[:, :, :cin, :cout] = weights.float().reshape(9, 3, cin, cout)
+    ch = tf32_channels(cp).to(weights.device)
+    s = torch.arange(sz, device=weights.device).view(sz, 1, 1, 1)
+    p = torch.arange(n // 16, device=weights.device).view(1, -1, 1, 1)
+    lane = torch.arange(32, device=weights.device).view(1, 1, 32, 1)
+    word = torch.arange(4, device=weights.device).view(1, 1, 1, 4)
+    g, t = lane // 4, lane % 4
+    nt = 2 * p + word // 2
+    chan = ch[t, s + sz * (word % 2)]        # b0: value s, b1: value S + s
+    # (9, 3, S, n/16, 32, 4) -> (9, 3*S, n/16, 32, 4), ks = tz*S + s
+    return b[:, :, chan, 8 * nt + g].reshape(9, 3 * sz, n // 16, 32, 4)
 
 
 # z the wide forward's per-row activity masks cover (csrc/winfuse.cu's
@@ -486,10 +541,14 @@ def _winfuse_cuda(feats, src, weights, nz):
             rows.data_ptr(), src.data_ptr(), w.data_ptr(), out.data_ptr(), v,
             nz, cp, cout, masks.data_ptr(), rows.shape[0], stream)
     else:
-        w = weights.float().contiguous()
-        err = cuda_lib.kernel('winfuse', 'sf_winfuse_fp32')(
-            feats.data_ptr(), src.data_ptr(), w.data_ptr(), out.data_ptr(), v,
-            nz, cin, cout, stream)
+        if is_wide(cin, cout):
+            cp, rows, w = cin, feats, weights.float().contiguous()
+        else:
+            cp = channel_pitch(cin)
+            rows, w = pitch_rows(feats, nz, cp), tf32_tap_weights(weights, cp)
+        err = cuda_lib.kernel('winfuse_fp32')(
+            rows.data_ptr(), src.data_ptr(), w.data_ptr(), out.data_ptr(), v,
+            nz, cp, cin, cout, stream)
     cuda_lib.check('winfuse', err)
     return out
 
@@ -503,11 +562,12 @@ WGRAD_LIST_ITEMS = 2048
 
 
 def wgrad_rows(feats: torch.Tensor, g: torch.Tensor, nz: int):
-    """The bf16 d-weights kernel's rows: (feats at Cin's channel pitch cp,
-    cp, g at Cout's pitch np, np), each from :func:`pitch_rows` (the rows
-    themselves where Cin or Cout already is a pitch: 8, 16 or 32, or for
-    the wide kernel 32, 64 or 128).  Every z row then starts on 16 bytes,
-    as the kernel's 16-byte copies and its ldmatrix rows need."""
+    """The d-weights kernels' rows (bf16, and fp32 up to 32 channels):
+    (feats at Cin's channel pitch cp, cp, g at Cout's pitch np, np), each
+    from :func:`pitch_rows` (the rows themselves where Cin or Cout already
+    is a pitch: 8, 16 or 32, or for the wide bf16 kernel 32, 64 or 128).
+    Every z row then starts on 16 bytes, as the kernels' 16-byte copies and
+    their fragment loads need."""
     cin, cout = feats.shape[1] // nz, g.shape[1] // nz
     pitch = wide_pitch if is_wide(cin, cout) else channel_pitch
     cp, np_ = pitch(cin), pitch(cout)
@@ -550,7 +610,7 @@ def wgrad_parts(sms: int, cin: int, cout: int, bf16: bool) -> int:
 
 
 def _wgrad_cuda(feats, nbr, found, g, nz):
-    global launches_wgrad
+    global launches_wgrad, launches_wgrad_fp32
     cin, cout = feats.shape[1] // nz, g.shape[1] // nz
     if not (1 <= cin <= MAX_CHANNELS and 1 <= cout <= MAX_CHANNELS):
         raise ValueError(f'winfuse wgrad kernel takes 1..{MAX_CHANNELS} '
@@ -585,11 +645,16 @@ def _wgrad_cuda(feats, nbr, found, g, nz):
             scratch.data_ptr(), max_parts, lists.data_ptr(), out.data_ptr(),
             v, nz, cp, cin, np_, cout, stream)
     else:
+        if is_wide(cin, cout):
+            rows, cp, g_rows, np_ = feats, cin, g, cout
+        else:
+            rows, cp, g_rows, np_ = wgrad_rows(feats, g, nz)
         err = cuda_lib.kernel('winfuse_wgrad', 'sf_winfuse_wgrad_fp32')(
-            feats.data_ptr(), src.data_ptr(), g.data_ptr(),
-            scratch.data_ptr(), max_parts, out.data_ptr(), v, nz, cin, cout,
-            stream)
+            rows.data_ptr(), src.data_ptr(), g_rows.data_ptr(),
+            scratch.data_ptr(), max_parts, out.data_ptr(), v, nz, cp, cin,
+            np_, cout, stream)
     cuda_lib.check('winfuse_wgrad', err)
     launches_wgrad += 1
+    launches_wgrad_fp32 += feats.dtype == torch.float32
     _count_wide(launches_wgrad_wide, cin, cout)
     return out

@@ -1,8 +1,8 @@
 """A/B of two checkouts of the port, in turns on one card.
 
     python3 streamingflow_tpu_torch/tools/ab.py ROOT_A ROOT_B \
-        [--backbone pillar8x|spconv8x] [--order ABBA] [--requests 10] \
-        [--train-steps 3] [--out FILE]
+        [--backbone pillar8x|spconv8x|spconv8x_fp32] [--order ABBA] \
+        [--requests 10] [--train-steps 3] [--out FILE]
 
 Each ROOT is a directory holding a ``streamingflow_tpu_torch`` package (this
 checkout, or an older one unpacked with ``git archive``).  For each letter
@@ -37,7 +37,25 @@ On ``spconv8x``:
     (``subm_conv_wgrad`` over the full found) at all three shapes and d
     feats (``subm_conv_dgrad`` over the reversed map) at stages 1 and 2,
     CUDA events over 20 calls;
+  - the same in fp32 (``fp32_cases()`` of ``k3_inputs``: conv_input on the
+    clouds' fp32 voxel features, stages 1 and 2 on fp32 path-like rows), d
+    feats at all three shapes (``k3_fp32_*``, ``k3_dgrad_fp32_*``,
+    ``k3_wgrad_fp32_*``);
   - the bf16 forecast, as above, with its K3 launches per request.
+
+On ``spconv8x_fp32`` (the fp32 path: fp32 points, COMPUTE_DTYPE 'auto'):
+
+  - ``evaluate.main`` on the imported reference checkpoint over a
+    flagship-size tree, as ``chip_smoke.py``'s ``reference_import`` runs it
+    (``chip_smoke.imported_checkpoint`` on ``mini_nuscenes.flagship_tree``,
+    both written once by the driving process, on the CPU): twice, the
+    second run read: the median host-clock time of ``eval_forward`` (one
+    forecast, synchronized) and K3's time a forecast through its wrapper
+    (CUDA events around each launch) with its launches by route;
+  - the flagship spconv8x training step with COMPUTE_DTYPE 'auto' (as the
+    train CLI runs the shipped yml): median of ``--train-steps`` steps
+    after one warm-up, peak memory, and K3's forward, d feats and d weights
+    time and launches a step (CUDA events around each launch).
 
 Run as a script, not as a module, so that each process imports the package
 under test and nothing else.  Prints one JSON line per turn and a summary
@@ -47,14 +65,17 @@ import argparse
 import importlib.util
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 # the repository root of this tool's checkout (its chip_smoke.py)
 _HERE = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
+STAGES = ('conv_input', 'stage1', 'stage2')
 KEYS = {'pillar8x': ('k1_wrapper_ms', 'k1_kernel_ms', 'k2_bf16_ms',
                      'k2_fp32_ms', 'pillar_features_ms', 'median_latency_s',
                      'median_step_s'),
@@ -62,7 +83,14 @@ KEYS = {'pillar8x': ('k1_wrapper_ms', 'k1_kernel_ms', 'k2_bf16_ms',
                      'k3_forecast_ms_est', 'k3_wgrad_conv_input_ms',
                      'k3_wgrad_stage1_ms', 'k3_wgrad_stage2_ms',
                      'k3_dgrad_stage1_ms', 'k3_dgrad_stage2_ms',
-                     'median_latency_s')}
+                     *(f'k3_{kind}fp32_{name}_ms'
+                       for kind in ('', 'dgrad_', 'wgrad_')
+                       for name in STAGES),
+                     'k3_fp32_forecast_ms_est', 'median_latency_s'),
+        'spconv8x_fp32': ('eval_median_forecast_s', 'eval_k3_ms_per_forecast',
+                          'median_step_s', 'peak_gib',
+                          'step_k3_forward_ms', 'step_k3_dgrad_ms',
+                          'step_k3_wgrad_ms')}
 
 
 def _event_ms(fn, reps=20, warmup=3):
@@ -155,6 +183,131 @@ def _smoke():
     return smoke
 
 
+class K3Clock:
+    """CUDA events around each K3 launch of the package ``WF``
+    (ops/winfuse.py) through its wrapper: the forward, d feats (the
+    forward's kernels under ``subm_conv_dgrad``) and d weights, with
+    their launches by the rows' type.  Read with :meth:`take`."""
+
+    def __init__(self, WF):
+        import torch
+        self.torch = torch
+        self.kind = 'forward'
+        self.reset()
+        fwd, dgrad, wgrad = WF._winfuse_cuda, WF.subm_conv_dgrad, \
+            WF._wgrad_cuda
+
+        def timed(fn, kind=None):
+            def run(*a, **kw):
+                k = kind or self.kind
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = fn(*a, **kw)
+                e1.record()
+                self.events[k].append((e0, e1))
+                dt = str(a[0].dtype).split('.')[-1]
+                self.launches[k][dt] = self.launches[k].get(dt, 0) + 1
+                return out
+            return run
+
+        def in_dgrad(*a, **kw):
+            self.kind = 'dgrad'
+            try:
+                return dgrad(*a, **kw)
+            finally:
+                self.kind = 'forward'
+        WF._winfuse_cuda = timed(fwd)
+        WF.subm_conv_dgrad = in_dgrad
+        WF._wgrad_cuda = timed(wgrad, 'wgrad')
+
+    def reset(self):
+        self.events = {k: [] for k in ('forward', 'dgrad', 'wgrad')}
+        self.launches = {k: {} for k in self.events}
+
+    def take(self):
+        """({kind: ms}, {kind: {dtype: launches}}) since the last take."""
+        self.torch.cuda.synchronize()
+        ms = {k: sum(a.elapsed_time(b) for a, b in v)
+              for k, v in self.events.items()}
+        launches = self.launches
+        self.reset()
+        return ms, launches
+
+
+def measure_spconv_fp32(root, tree, ckpt, n_steps):
+    """One turn of the fp32 path: the package under ``root``, evaluate on
+    the imported checkpoint ``ckpt`` over ``tree``, then the fp32 flagship
+    step, as the docstring says."""
+    sys.path.insert(0, os.path.abspath(root))
+    import contextlib
+    import io
+    import torch
+    import streamingflow_tpu_torch as P
+    from streamingflow_tpu_torch import evaluate as E
+    from streamingflow_tpu_torch.data import flagship_config, make_batch
+    from streamingflow_tpu_torch.data import dataloader
+    from streamingflow_tpu_torch.ops import winfuse as WF
+    _pin_tf32()
+    dev = torch.device('cuda', 0)
+    result = {'root': root, 'package': os.path.dirname(P.__file__)}
+    clock = K3Clock(WF)
+    forward = E.eval_forward
+    times, k3 = [], []
+
+    def timed_forward(*a, **kw):
+        clock.take()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = forward(*a, **kw)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        k3.append(clock.take())
+        return out
+    E.eval_forward = timed_forward
+    for _ in range(2):
+        times.clear()
+        k3.clear()
+        with contextlib.redirect_stdout(io.StringIO()):
+            E.main(['--checkpoint', ckpt, '--device', str(dev)])
+    if hasattr(dataloader, 'stop_worker_server'):
+        dataloader.stop_worker_server()
+    result.update(
+        eval_forecast_s=list(times),
+        eval_median_forecast_s=statistics.median(times),
+        eval_k3_ms_per_forecast=statistics.median(
+            sum(ms.values()) for ms, _ in k3),
+        eval_k3_launches_per_forecast=k3[-1][1])
+
+    cfg = flagship_config(backbone='spconv8x')
+    cfg.MODEL.SPARSE_ENCODER.COMPUTE_DTYPE = 'auto'
+    trainer = P.build_trainer(cfg, device=dev, seed=0)
+
+    def step(seed):
+        b = make_batch(cfg, 1, seed=seed, n_points=80000)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        P.train_step(trainer, b, generator=gen)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    step(100)
+    torch.cuda.reset_peak_memory_stats()
+    clock.take()
+    steps, per_step = [], []
+    for s in range(1, n_steps + 1):
+        steps.append(step(s))
+        per_step.append(clock.take())
+    result.update(
+        step_s=steps, median_step_s=statistics.median(steps),
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        step_k3_launches=per_step[-1][1],
+        **{f'step_k3_{kind}_ms': statistics.median(ms[kind]
+                                                   for ms, _ in per_step)
+           for kind in ('forward', 'dgrad', 'wgrad')})
+    return result
+
+
 def measure_spconv(root, n_requests):
     """One spconv8x turn: the package under ``root``."""
     sys.path.insert(0, os.path.abspath(root))
@@ -166,7 +319,7 @@ def measure_spconv(root, n_requests):
     dev = torch.device('cuda', 0)
     smoke = _smoke()
     result = {'root': root, 'package': os.path.dirname(P.__file__)}
-    cases, _ = smoke.k3_inputs(dev)
+    cases, x = smoke.k3_inputs(dev)
     for name, (feats, geo, w, nz, zmask) in cases.items():
         result[f'k3_{name}_ms'] = _event_ms(
             lambda: WF.subm_conv_winfuse(feats, geo.nbr, geo.found, w, nz))
@@ -183,6 +336,21 @@ def measure_spconv(root, n_requests):
     result['k3_forecast_ms_est'] = result['k3_conv_input_ms'] + 4 * (
         result['k3_stage1_ms'] + result['k3_stage2_ms'])
     del cases, feats, geo, w, zmask, g
+    for name, (feats, geo, w, nz, zmask) in x.fp32_cases().items():
+        result[f'k3_fp32_{name}_ms'] = _event_ms(
+            lambda: WF.subm_conv_winfuse(feats, geo.nbr, geo.found, w, nz))
+        gen = torch.Generator(device=dev).manual_seed(7)
+        rows, cout = geo.nbr.shape[1], w.shape[2]
+        g = (torch.randn(rows, nz, cout, device=dev, generator=gen) *
+             zmask.reshape(rows, nz, 1)).reshape(rows, -1)
+        result[f'k3_wgrad_fp32_{name}_ms'] = _event_ms(
+            lambda: WF.subm_conv_wgrad(feats, geo.nbr, geo.grad_found, g,
+                                       nz))
+        result[f'k3_dgrad_fp32_{name}_ms'] = _event_ms(
+            lambda: WF.subm_conv_dgrad(g, geo.src_t, w, nz))
+    result['k3_fp32_forecast_ms_est'] = result['k3_fp32_conv_input_ms'] + \
+        4 * (result['k3_fp32_stage1_ms'] + result['k3_fp32_stage2_ms'])
+    del feats, geo, w, zmask, g
     cfg = flagship_config(backbone='spconv8x')
     model = P.build_model(cfg, device=dev, dtype=torch.bfloat16, seed=0)
     result.update(_latencies(P, model, cfg, dev, n_requests, WF))
@@ -267,11 +435,17 @@ def main(argv=None):
     ap.add_argument('--out', default=None)
     ap.add_argument('--measure', default=None,
                     help='measure this root in this process (one turn)')
+    ap.add_argument('--tree', default=None, help=argparse.SUPPRESS)
+    ap.add_argument('--checkpoint', default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.measure is not None:
-        result = (measure_spconv(args.measure, args.requests)
-                  if args.backbone == 'spconv8x' else
-                  measure(args.measure, args.requests, args.train_steps))
+        if args.backbone == 'spconv8x_fp32':
+            result = measure_spconv_fp32(args.measure, args.tree,
+                                         args.checkpoint, args.train_steps)
+        elif args.backbone == 'spconv8x':
+            result = measure_spconv(args.measure, args.requests)
+        else:
+            result = measure(args.measure, args.requests, args.train_steps)
         print(json.dumps(result), flush=True)
         return 0
     if len(args.roots) != 2:
@@ -280,14 +454,25 @@ def main(argv=None):
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
         timeout=60).stdout.strip()
+    extra, tmp = [], None
+    if args.backbone == 'spconv8x_fp32':
+        # the tree and the imported checkpoint, once, on the CPU
+        tmp = tempfile.mkdtemp(prefix='ab_fp32_')
+        tree = os.path.join(tmp, 'nuscenes')
+        sys.path.insert(0, _HERE)
+        from streamingflow_tpu_torch.data import mini_nuscenes, raster
+        mini_nuscenes.flagship_tree(
+            tree, 'jpg' if raster.image_decoder() == 'PIL' else 'ppm')
+        ckpt = _smoke().imported_checkpoint(tree, tmp)[2]
+        extra = ['--tree', tree, '--checkpoint', ckpt]
     turns = []
     for letter in args.order:
         root = args.roots['AB'.index(letter)]
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), '--measure', root,
              '--backbone', args.backbone, '--requests', str(args.requests),
-             '--train-steps', str(args.train_steps)], capture_output=True,
-            text=True)
+             '--train-steps', str(args.train_steps), *extra],
+            capture_output=True, text=True)
         if proc.returncode != 0:
             sys.stderr.write(proc.stdout + proc.stderr)
             raise SystemExit(f'ab: the turn on {root} failed')
@@ -299,6 +484,8 @@ def main(argv=None):
     for key in KEYS[args.backbone]:
         summary[key] = {letter: [t[key] for t in turns if t['turn'] == letter]
                         for letter in 'AB'}
+    if tmp is not None:
+        shutil.rmtree(tmp, ignore_errors=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

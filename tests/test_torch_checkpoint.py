@@ -30,7 +30,7 @@ from streamingflow_tpu_torch.convert import save_flax_variables_as_checkpoint
 from streamingflow_tpu_torch.training.checkpoint import (
     FILENAME, CheckpointManager, ForeignCheckpointError, warm_start)
 
-from torch_parity import assert_close, init_jax, jnp_tree
+from torch_parity import assert_close, init_jax, jnp_tree, port_like
 
 FORWARD_BAR = 5e-3
 
@@ -169,8 +169,7 @@ def orbax_run(tmp_path_factory):
     cfg = _cfg()
     batch = _batch(4)
     module = JT.StreamingFlowTrainModule(cfg)
-    variables = init_jax(module, **JT.batch_to_model_args(jnp_tree(batch),
-                                                          cfg))
+    variables = init_jax(module, like=port_like(cfg, train=True))
     state = JT.TrainState.create(
         apply_fn=module.apply, params=variables['params'],
         tx=optax.adam(cfg.OPTIMIZER.LR), batch_stats=variables['batch_stats'])

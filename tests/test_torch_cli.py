@@ -31,7 +31,6 @@ sys.path.insert(0, ROOT)
 from fixtures_nuscenes import make_mini_nuscenes  # noqa: E402
 
 from streamingflow_tpu.config import load_cfg as jload_cfg  # noqa: E402
-from streamingflow_tpu.data import make_batch  # noqa: E402
 from streamingflow_tpu.training import trainer as JT  # noqa: E402
 from streamingflow_tpu.training.checkpoint import \
     CheckpointManager as JCheckpointManager  # noqa: E402
@@ -41,7 +40,7 @@ from streamingflow_tpu_torch.config import Config as PConfig  # noqa: E402
 from streamingflow_tpu_torch.convert import \
     save_flax_variables_as_checkpoint  # noqa: E402
 
-from torch_parity import init_jax, jnp_tree  # noqa: E402
+from torch_parity import init_jax, port_like  # noqa: E402
 
 MICRO = """
 LOG_DIR: '{log_dir}'
@@ -196,13 +195,12 @@ def _seg_panels(plot_dir, h, w):
     return np.stack(masks)
 
 
-def _random_train_state(cfg, batch, seed):
+def _random_train_state(cfg, seed):
     """The train state of JT.create_train_state (its optimizer chain, whose
-    state the JAX evaluate restores into) with random variables from
-    eval_shape in place of its compiled init."""
+    state the JAX evaluate restores into) with random variables (shaped as
+    the port's train module) in place of its compiled init."""
     module = JT.StreamingFlowTrainModule(cfg)
-    variables = init_jax(module, **JT.batch_to_model_args(batch, cfg),
-                         seed=seed)
+    variables = init_jax(module, seed=seed, like=port_like(cfg, train=True))
     tx = optax.chain(optax.clip_by_global_norm(cfg.GRAD_NORM_CLIP),
                      optax.add_decayed_weights(cfg.OPTIMIZER.WEIGHT_DECAY),
                      optax.adam(cfg.OPTIMIZER.LR))
@@ -217,18 +215,16 @@ def test_jax_weights_give_the_jax_evaluate(env, tmp_path, monkeypatch,
     import evaluate as jax_evaluate
     write_cfg, _ = env
     jcfg = jload_cfg(write_cfg('jax_weights'))
-    state = _random_train_state(
-        jcfg, jnp_tree(make_batch(jcfg, 1, seed=0, n_points=64)), 3)
+    state = _random_train_state(jcfg, 3)
     jdir = str(tmp_path / 'orbax')
     jckpt = JCheckpointManager(jdir)
     jckpt.save(1, state, jcfg)
 
     # the JAX evaluate builds its state only to restore the checkpoint over
-    # it: the template comes from eval_shape, not from a compile of the
-    # model's init (the values are the checkpoint's either way)
+    # it: the template comes from random variables, not from a compile of
+    # the model's init (the values are the checkpoint's either way)
     monkeypatch.setattr(JT, 'create_train_state',
-                        lambda cfg, rng, batch: _random_train_state(
-                            cfg, batch, 0))
+                        lambda cfg, rng, batch: _random_train_state(cfg, 0))
     monkeypatch.setattr(sys, 'argv', [
         'evaluate.py', '--checkpoint', jdir, '--plot', str(tmp_path / 'jp')])
     jax_evaluate.main()

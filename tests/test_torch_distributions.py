@@ -15,19 +15,18 @@ import numpy as np
 import pytest
 import torch
 
-from streamingflow_tpu.data import make_batch, tiny_config
+from streamingflow_tpu.data import tiny_config
 from streamingflow_tpu.layers import conv as jconv
 from streamingflow_tpu.models import StreamingFlow as JStreamingFlow
 from streamingflow_tpu.models import distributions as jdist
-from streamingflow_tpu.training.trainer import batch_to_model_args as jargs
 from streamingflow_tpu_torch.config import Config as PConfig
 from streamingflow_tpu_torch.convert import flax_to_state_dict
 from streamingflow_tpu_torch.layers import conv as pconv
 from streamingflow_tpu_torch.models import distributions as pdist
 from streamingflow_tpu_torch.models.streamingflow import StreamingFlow
 
-from torch_parity import (apply_jax, assert_close, init_jax, jnp_tree, nchw,
-                          nhwc, port, t)
+from torch_parity import (apply_jax, assert_close, init_jax, nchw, nhwc,
+                          port, port_like, t)
 
 TOL = 1e-5
 B, H, W, C, L = 2, 16, 16, 8, 4
@@ -123,8 +122,7 @@ def jax_tree():
     """A tiny PROBABILISTIC model's JAX variables: init never calls the
     head, so the tree has none of its leaves."""
     cfg = _model_cfg()
-    args = jargs(jnp_tree(make_batch(cfg, 1, seed=1, n_points=256)), cfg)
-    v = init_jax(JStreamingFlow(cfg), **args)
+    v = init_jax(JStreamingFlow(cfg), like=port_like(cfg))
     assert 'present_distribution' not in v['params']
     return cfg, v
 

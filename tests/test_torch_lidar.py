@@ -90,9 +90,10 @@ def test_lidar_encoder_matches_jax():
     pts = rng.uniform(-4, 4, size=(1, 2, 256, 5)).astype(np.float32)
     pts[..., 2] = rng.uniform(-4, 3.5, size=(1, 2, 256))
     module = JL.LidarBEVEncoder(cfg)
-    variables = init_jax(module, jnp.asarray(pts))
+    enc = PL.LidarBEVEncoder(_port_se(cfg))
+    variables = init_jax(module, like=enc)
     want = apply_jax(module, variables, jnp.asarray(pts))
-    enc = port(PL.LidarBEVEncoder(_port_se(cfg)), variables)
+    enc = port(enc, variables)
     with torch.no_grad():
         got = enc(t(pts))
     assert got.shape[2] == enc.out_channels
@@ -148,12 +149,12 @@ def test_spconv8x_forward_matches_jax():
     batch = make_batch(cfg, 1, seed=5, n_points=512)
     args = jargs(jnp_tree(batch), cfg)
     model = JStreamingFlow(cfg)
-    variables = init_jax(model, **args)
-    want = apply_jax(model, variables, **args)
-
     pcfg = PConfig().merge_dict(cfg.to_dict())
     pcfg.MODEL.BEV_POOL_BACKEND = 'pallas_patch'
-    pmodel = port(P.build_model(pcfg, device='cpu'), variables)
+    pmodel = P.build_model(pcfg, device='cpu')
+    variables = init_jax(model, like=pmodel)
+    want = apply_jax(model, variables, **args)
+    pmodel = port(pmodel, variables)
     with torch.no_grad():
         got = pmodel(**P.batch_to_model_args(batch, pcfg, device='cpu'))
     assert int(PP.last_drops.sum()) == 0

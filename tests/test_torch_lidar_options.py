@@ -53,11 +53,12 @@ def micro(engine='column', formulation='sep', tail=3, **changes):
     return cfg
 
 
-def jax_both_modes(cfg, pts):
+def jax_both_modes(cfg, pts, like):
     """The JAX encoder's eval output, train-mode output, updated
-    batch_stats and diagnostics, one jit."""
+    batch_stats and diagnostics, one jit, on random variables shaped as
+    the port's encoder ``like``."""
     module = JL.LidarBEVEncoder(cfg)
-    variables = init_jax(module, jnp.asarray(pts))
+    variables = init_jax(module, like=like)
 
     def run(v, p):
         ev = module.apply(v, p)
@@ -77,8 +78,9 @@ def check_setting(cfg, pts=None):
     """Hold the port's encoder at cfg against the JAX one in both modes;
     returns the port's encoder after its train-mode forward."""
     pts = points() if pts is None else pts
-    variables, ev, tr, stats, diag = jax_both_modes(cfg, pts)
-    enc = port(PL.LidarBEVEncoder(_port_se(cfg)), variables)
+    enc = PL.LidarBEVEncoder(_port_se(cfg))
+    variables, ev, tr, stats, diag = jax_both_modes(cfg, pts, enc)
+    enc = port(enc, variables)
     with torch.no_grad():
         got = enc(t(pts))
     assert_close(got.permute(0, 1, 3, 4, 2), ev, 1e-4, 'eval output')

@@ -40,10 +40,14 @@ def test_train_gradients_match_jax(engine, formulation, tail):
     cfg.REMAT_LADDER = False
     pts = points()
     module = JL.LidarBEVEncoder(cfg)
-    variables = init_jax(module, jnp.asarray(pts))
-    out_shape = jax.eval_shape(lambda v: module.apply(v, jnp.asarray(pts)),
-                               variables).shape
-    cot = np.random.default_rng(1).normal(size=out_shape).astype(np.float32)
+    se = _port_se(cfg)
+    se.REMAT_LADDER = True
+    enc = PL.LidarBEVEncoder(se)
+    variables = init_jax(module, like=enc)
+    enc = port(enc, variables).train()
+    got = enc(t(pts))
+    cot = np.random.default_rng(1).normal(
+        size=got.permute(0, 1, 3, 4, 2).shape).astype(np.float32)
 
     def loss(params):
         out, upd = module.apply(
@@ -56,10 +60,6 @@ def test_train_gradients_match_jax(engine, formulation, tail):
         (_, (out, upd)), grads = jax.jit(jax.value_and_grad(
             loss, has_aux=True))(variables['params'])
 
-    se = _port_se(cfg)
-    se.REMAT_LADDER = True
-    enc = port(PL.LidarBEVEncoder(se), variables).train()
-    got = enc(t(pts))
     (got.permute(0, 1, 3, 4, 2) * t(cot)).sum().backward()
     if formulation == 'win':
         assert int(enc.last_n_dropped['stage1'].sum()) > 0

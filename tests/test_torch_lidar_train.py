@@ -146,9 +146,10 @@ def jax_micro_step():
     cfg.REMAT_LADDER = False
     pts = _points()
     module = JL.LidarBEVEncoder(cfg)
-    variables = init_jax(module, jnp.asarray(pts))
-    out_shape = jax.eval_shape(lambda v: module.apply(v, jnp.asarray(pts)),
-                               variables).shape
+    enc = PL.LidarBEVEncoder(_port_se(cfg))
+    variables = init_jax(module, like=enc)
+    with torch.no_grad():     # the output's shape, (B, T, H, W, C)
+        out_shape = port(enc, variables)(t(pts)).permute(0, 1, 3, 4, 2).shape
     cot = np.random.default_rng(1).normal(size=out_shape).astype(np.float32)
 
     def loss(params):

@@ -19,7 +19,8 @@ import streamingflow_tpu_torch as P
 from streamingflow_tpu_torch.config import Config as PConfig
 from streamingflow_tpu_torch.ops import patch_pool as PP
 
-from torch_parity import apply_jax, assert_close, init_jax, jnp_tree, port
+from torch_parity import (apply_jax, assert_close, init_jax, jnp_tree, port,
+                          port_like)
 
 TOL = 5e-3
 
@@ -40,7 +41,7 @@ def jax_run():
     batch = make_batch(cfg, 1, seed=5, n_points=2048)
     args = jargs(jnp_tree(batch), cfg)
     model = JStreamingFlow(cfg)
-    variables = init_jax(model, **args)
+    variables = init_jax(model, like=port_like(cfg))
     return cfg, batch, variables, apply_jax(model, variables, **args)
 
 

@@ -26,7 +26,7 @@ from streamingflow_tpu_torch.data import mini_nuscenes
 from streamingflow_tpu_torch.data import tiny_config
 from streamingflow_tpu_torch.training import metrics as PM
 
-from torch_parity import assert_close, init_jax, jnp_tree
+from torch_parity import assert_close, init_jax, jnp_tree, port_like
 
 
 @pytest.mark.parametrize('which', ['tiny', 'default'])
@@ -150,10 +150,7 @@ def test_run_planner_matches_jax(tmp_path, hdmap_head):
     module = JT.StreamingFlowTrainModule(jcfg)
     jb = jnp_tree({k: v.numpy() for k, v in batch.items()
                    if torch.is_tensor(v)})
-    labels = JT.prepare_future_labels(jb, jcfg)
-    variables = init_jax(module, **JT.batch_to_model_args(jb, jcfg),
-                         planning_inputs=JT.build_planning_inputs(
-                             jb, labels, jcfg))
+    variables = init_jax(module, like=port_like(jcfg, train=True))
     trainer = P.build_trainer(pcfg, device='cpu')
     load_flax_variables(trainer.module, variables)
     _, output, _ = PE.forward_and_labels(trainer, batch, pcfg)

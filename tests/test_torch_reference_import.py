@@ -29,7 +29,6 @@ import pytest
 import torch
 
 from streamingflow_tpu.config import load_cfg as jload_cfg
-from streamingflow_tpu.data import make_batch
 from streamingflow_tpu.training import trainer as JTR
 from streamingflow_tpu.utils import torch_convert as JTC
 from streamingflow_tpu_torch.config import Config as PConfig
@@ -40,7 +39,7 @@ from streamingflow_tpu_torch.training.trainer import (
     StreamingFlowTrainModule, build_trainer)
 from streamingflow_tpu_torch.utils import torch_convert as PTC
 
-from torch_parity import init_jax, jnp_tree
+from torch_parity import init_jax, port_like
 from torch_reference_names import reference_state_dict
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -81,10 +80,8 @@ def _cfg():
 @pytest.fixture(scope='module')
 def case():
     cfg = _cfg()
-    batch = make_batch(cfg, 1, seed=0, n_points=256)
-    args = JTR.batch_to_model_args(jnp_tree(batch), cfg)
-    variables = init_jax(JTR.StreamingFlowTrainModule(cfg), **args,
-                         seed=SEED)
+    variables = init_jax(JTR.StreamingFlowTrainModule(cfg), seed=SEED,
+                         like=port_like(cfg, train=True))
     flat = {p: np.asarray(v) for p, v in
             JTC.flatten_tree(variables).items()}
     sd = reference_state_dict(flat, JRULES.RULES)
@@ -212,10 +209,8 @@ def test_pillar8x_refuses_as_the_jax_tool_does(case):
     sd = case[4]
     cfg = _cfg()
     cfg.MODEL.LIDAR.BACKBONE = 'pillar8x'
-    batch = make_batch(cfg, 1, seed=0, n_points=256)
-    args = JTR.batch_to_model_args(jnp_tree(batch), cfg)
-    variables = init_jax(JTR.StreamingFlowTrainModule(cfg), **args,
-                         seed=SEED)
+    variables = init_jax(JTR.StreamingFlowTrainModule(cfg), seed=SEED,
+                         like=port_like(cfg, train=True))
     pcfg = PConfig().merge_dict(cfg.to_dict())
     with pytest.raises(ValueError) as jerr:
         JTC.convert_variables(variables, sd, JRULES.RULES)

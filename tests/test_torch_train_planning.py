@@ -30,7 +30,7 @@ from streamingflow_tpu_torch.convert import load_flax_variables, state_to_flax
 from streamingflow_tpu_torch.layers.trainmode import Dropout
 from streamingflow_tpu_torch.training import trainer as PT
 
-from torch_parity import init_jax, jnp_tree
+from torch_parity import init_jax, jnp_tree, port_like
 
 
 def _cfg():
@@ -66,9 +66,7 @@ def _jax_forward(x64):
         module = JT.StreamingFlowTrainModule(cfg)
         jb = jnp_tree(batch)
         labels = JT.prepare_future_labels(jb, cfg)
-        variables = init_jax(module, **JT.batch_to_model_args(jb, cfg),
-                             planning_inputs=JT.build_planning_inputs(
-                                 jb, labels, cfg))
+        variables = init_jax(module, like=port_like(cfg, train=True))
         key = jax.random.PRNGKey(0)
 
         def fwd(params, stats, jbatch):

@@ -55,7 +55,7 @@ from streamingflow_tpu_torch.layers.trainmode import Dropout
 from streamingflow_tpu_torch.ops import patch_pool as PP
 from streamingflow_tpu_torch.training import trainer as PT
 
-from torch_parity import assert_close, init_jax, jnp_tree
+from torch_parity import assert_close, init_jax, jnp_tree, port_like
 
 
 def _cfg():
@@ -100,8 +100,7 @@ def _jax_step(x64, cfg=None, n_points=2048):
         cfg = _cfg() if cfg is None else cfg
         batch = make_batch(cfg, 1, seed=5, n_points=n_points)
         module = JT.StreamingFlowTrainModule(cfg)
-        variables = init_jax(module, **JT.batch_to_model_args(
-            jnp_tree(batch), cfg))
+        variables = init_jax(module, like=port_like(cfg, train=True))
         key = jax.random.PRNGKey(0)
         if x64 and cfg.MODEL.LIDAR.BACKBONE == 'pillar8x':
             feats = _eager_pillar_features(cfg, batch['points'])

@@ -142,7 +142,11 @@ def test_prepared_walk_matches_plain(cin, nz):
 
 def test_route_by_dtype():
     assert WF.route(torch.bfloat16).startswith('tensor cores')
-    assert WF.route(torch.float32).startswith('CUDA cores')
+    # fp32 up to 32 channels in 3xTF32 on the tensor cores, past them on
+    # the CUDA cores
+    assert WF.route(torch.float32, 32, 32).startswith('tensor cores')
+    assert '3xTF32' in WF.route(torch.float32, 16, 32)
+    assert WF.route(torch.float32, 64, 64).startswith('CUDA cores')
 
 
 def _staged_w_s(b, cp, nt):

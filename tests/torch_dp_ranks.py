@@ -27,6 +27,10 @@ from streamingflow_tpu_torch.training.checkpoint import CheckpointManager
 from streamingflow_tpu_torch.training.metrics import IntersectionOverUnion
 from streamingflow_tpu_torch.training.trainer import compute_losses
 
+# the ranks run beside the suite's other worker processes: two intra-op
+# threads each, as tests/torch_parity.py gives the test processes
+torch.set_num_threads(2)
+
 WORLD = 2
 BN_CASES = {'spatial': (4, 6, 5, 3), 'one_value_per_channel': (2, 6)}
 MASKED_CASES = ('unequal_counts', 'rank1_holds_none')

@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from streamingflow_tpu_torch.convert import load_flax_variables
+from streamingflow_tpu_torch.convert import load_flax_variables, state_to_flax
 
 # the suite runs in several worker processes at once: two intra-op threads
 # each keep them from contending for the cores
@@ -42,16 +42,62 @@ def random_variables(shapes, seed=0):
     return {col: walk(tree, col) for col, tree in shapes.items()}
 
 
-def init_jax(module, *args, seed=0, **kwargs):
+def init_jax(module, *args, seed=0, like=None, **kwargs):
     """Random variables for a flax module at these inputs (shapes from
     ``eval_shape``: nothing is compiled).  Only 'params' and 'batch_stats'
     are kept: a collection that a module sows into (the LiDAR encoder's
-    'diagnostics') is output, not weights."""
+    'diagnostics') is output, not weights.
+
+    ``like``: the port's counterpart of ``module``, whose variable tree
+    (``state_to_flax``, keys sorted as JAX's tree order sorts them) gives
+    the same shapes, and so the same draws, without tracing the JAX
+    module's init (seconds for an encoder or a whole model)."""
+    if like is not None:
+        return random_variables(port_shapes(like), seed)
     key = jax.random.PRNGKey(seed)
     shapes = jax.eval_shape(lambda *a: module.init(
         {'params': key, 'dropout': key, 'sample': key}, *a, **kwargs), *args)
     return random_variables({c: shapes[c] for c in ('params', 'batch_stats')
                              if c in shapes}, seed)
+
+
+def port_like(cfg, train=False):
+    """The port's counterpart, on the CPU, of the JAX package's
+    StreamingFlow at its config ``cfg`` (``train``: of its train module):
+    the template ``init_jax``'s ``like`` takes."""
+    from streamingflow_tpu_torch.config import Config
+    from streamingflow_tpu_torch.models.streamingflow import StreamingFlow
+    from streamingflow_tpu_torch.training.trainer import (
+        StreamingFlowTrainModule)
+    pcfg = Config().merge_dict(cfg.to_dict())
+    return (StreamingFlowTrainModule if train else StreamingFlow)(pcfg)
+
+
+# submodules of the port's tree that the JAX module's init never creates:
+# the distribution head (JAX creates it only when a forward calls it)
+NOT_IN_JAX_INIT = ('present_distribution',)
+
+
+def port_shapes(module):
+    """The flax variable tree of a port module (nested, arrays with the
+    leaves' shapes), each level's keys sorted, without NOT_IN_JAX_INIT:
+    'params', and 'batch_stats' where it has any."""
+    def nest(flat):
+        tree = {}
+        for path, leaf in flat.items():
+            *parents, name = path.split('/')
+            node = tree
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[name] = leaf
+        return tree
+
+    def ordered(tree):
+        return {k: ordered(v) if isinstance(v, dict) else v
+                for k, v in sorted(tree.items()) if k not in NOT_IN_JAX_INIT}
+    flat = state_to_flax(module)
+    return {c: ordered(nest(flat[c])) for c in ('params', 'batch_stats')
+            if flat.get(c)}
 
 
 def apply_jax(module, variables, *args, **kwargs):
