@@ -55,12 +55,15 @@ line (``phases``).  Phases, each printing one JSON line:
                  wide kernels (past 32 channels) at stage 3 (64 -> 64, nz
                  11) and stage 4 (128 -> 128, nz 5) of the same clouds'
                  DENSE_TAIL_FROM_STAGE 0 geometry, forward, d feats and d
-                 weights, bf16 and fp32, under the same bars, each row's
-                 share of its bound, and the wide forward's time split by
-                 two ablations (products alone, copies alone);
-                 and the wide bf16 kernels past the row masks' 32 z (the
-                 flagship's 41, 64 -> 128 on one cloud's stage-1 columns),
-                 forward, d feats and d weights, under the same bars
+                 weights, bf16 and fp32 (3xTF32), under the same bars,
+                 each row's share of its bound, and the wide bf16
+                 forward's time split by two ablations (products alone,
+                 copies alone); a forced drop at stage 3 in fp32; the wide
+                 kernels past the row masks' 32 z (the flagship's 41,
+                 64 -> 128 on one cloud's stage-1 columns, d feats 128 ->
+                 64), bf16 and fp32, forward, d feats and d weights, under
+                 the same bars; the fp32 wide kernels' ptxas report free
+                 of spills
   6. tiny        a tiny camera+LiDAR forward on the card (kernels) vs the
                  same weights on the CPU (plain versions)
   7. tiny_spconv the same on the spconv8x backbone ('winfuse')
@@ -85,8 +88,10 @@ line (``phases``).  Phases, each printing one JSON line:
                  versions on the card where a cap is hit); tail 1 (the
                  stage-1 grid dense) as the bf16 encoder alone at the clouds
                  its reckoned peak allows, fp32 on one cloud; one flagship
-                 training step on 'gather' and one on tail 0 (the wide d
-                 feats and d weights)
+                 training step on 'gather', one on tail 0 (the wide d
+                 feats and d weights) and one on tail 0 with fp32 points
+                 (COMPUTE_DTYPE 'auto': the fp32 wide forward, d feats and
+                 d weights; step s, peak GiB, K3 ms a step)
  11. bin_sum_grouped  the grouped bin-sum kernel vs the plain version and vs
                  bin_sum at the same cloud (presorted and unsorted, bf16 and
                  raw fp32, k_tiles 4 / 8 / 16, alone and through the
@@ -166,7 +171,11 @@ line (``phases``).  Phases, each printing one JSON line:
                  (the distribution head aside); a bf16 forecast with each
                  set of weights within the forecast's own run-to-run
                  spread; evaluate.main on the imported checkpoint over
-                 phase cli's tree (K2 and K3 counted); distribution_forward
+                 phase cli's tree (K2 and K3 counted), and again at
+                 DENSE_TAIL_FROM_STAGE 0 (fp32: the wide K3 kernels at
+                 stages 3 and 4), each forecast's outputs within 1e-4 of
+                 the tail-3 ones' scale, its median and wide launches;
+                 distribution_forward
                  of the three methods at the flagship present state, card
                  against CPU (1e-5)
  14f. planning   (after train) the flagship with PLANNING.ENABLED (600
@@ -190,7 +199,10 @@ line (``phases``).  Phases, each printing one JSON line:
                  (the wide K3 rows: launches of sparse_options' tail-0
                  forecasts and step; the fp32 K3 rows, 3xTF32: the
                  forward's of reference_import's evaluation, d feats' and
-                 d weights' of train_tiny_spconv's fp32 step)
+                 d weights' of train_tiny_spconv's fp32 step; the fp32
+                 wide rows: the forward's of reference_import's tail-0
+                 evaluation, each row's of sparse_options' fp32 tail-0
+                 step)
                  (cli_launches: of phase cli; import_launches: of phase
                  reference_import's evaluation; planning_launches: of phases
                  planning and planning_cli); then a check that every
@@ -217,22 +229,21 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM peaks (NVIDIA data sheet, at 700 W): HBM bytes/s, fp32 FLOP/s
-# outside the tensor cores, dense bf16 FLOP/s of the tensor cores; the
-# 3xTF32 route's: three passes at the dense TF32 peak (495 TFLOP/s)
+# outside the tensor cores (K1's and K2's sums), dense bf16 FLOP/s of the
+# tensor cores; the 3xTF32 route's: three passes at the dense TF32 peak
+# (495 TFLOP/s)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
 TF32X3_FLOPS = 495e12 / 3
 
 
-def peak_flops(dtype, cin, cout):
-    """The peak rate of K3's route for rows of ``dtype`` at these widths
-    (ops/winfuse.py::route): bf16 and 3xTF32 on the tensor cores, fp32
-    past 32 channels on the CUDA cores."""
+def peak_flops(dtype):
+    """The peak rate of K3's route for rows of ``dtype``
+    (ops/winfuse.py::route): bf16, or fp32 in 3xTF32, on the tensor cores
+    at every width."""
     import torch
-    if dtype == torch.bfloat16:
-        return BF16_FLOPS
-    return FP32_FLOPS if max(cin, cout) > 32 else TF32X3_FLOPS
+    return BF16_FLOPS if dtype == torch.bfloat16 else TF32X3_FLOPS
 
 
 # every line the phases print, kept for the --out file (a long run's output
@@ -546,26 +557,39 @@ def _held(out, ref):
             'ok': err <= SPARSE_OPTIONS_BAR * scale}
 
 
+# K3's launch counters (ops/winfuse.py): every route, fp32 rows, wide
+K3_COUNTERS = tuple(f'launches{kind}{leg}' for leg in ('', '_fp32', '_wide')
+                    for kind in ('', '_dgrad', '_wgrad'))
+
+
 def _spconv_step(cfg, dev):
     """One flagship spconv8x training step of cfg (fp32 parameters, the
-    LiDAR branch in bf16, MODEL.REMAT and REMAT_LADDER as configured), K3's
-    launches read around it: step s, peak GiB, losses, launches."""
+    LiDAR branch in bf16 or, with COMPUTE_DTYPE 'auto', in fp32; MODEL.REMAT
+    and REMAT_LADDER as configured), K3's launches read around it and its
+    time by CUDA events around each launch (tools/ab.py's K3Clock): step s,
+    peak GiB, losses, launches, K3 ms of the step (forward, d feats, d
+    weights)."""
     import torch
     import streamingflow_tpu_torch as P
     from streamingflow_tpu_torch.data import make_batch
     from streamingflow_tpu_torch.ops import winfuse as WF
+    from streamingflow_tpu_torch.tools.ab import K3Clock
     trainer = P.build_trainer(cfg, device=dev, seed=0)
     batch = make_batch(cfg, 1, seed=1, n_points=80000)
-    for a in ('launches', 'launches_dgrad', 'launches_wgrad'):
-        setattr(WF, a, 0)
-        setattr(WF, a + '_wide', {})
+    for a in K3_COUNTERS:
+        setattr(WF, a, {} if a.endswith('_wide') else 0)
     torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    gen = torch.Generator(device=dev).manual_seed(1)
-    metrics = P.train_step(trainer, batch, generator=gen)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    clock = K3Clock(WF)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(1)
+        metrics = P.train_step(trainer, batch, generator=gen)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        k3_ms = clock.take()[0]
+    finally:
+        clock.close()
     for k, v in metrics.items():
         if not torch.isfinite(v).all():
             raise AssertionError(f'sparse_options step: {k} not finite')
@@ -574,14 +598,12 @@ def _spconv_step(cfg, dev):
             raise AssertionError(f'sparse_options step: {k} not finite')
     out = {'step_s': dt,
            'peak_mem_gib': torch.cuda.max_memory_allocated() / 2 ** 30,
+           'k3_ms': k3_ms,
            'losses': {k: float(v) for k, v in metrics.items()
                       if not k.startswith('diag/')},
            'diagnostics': {k[5:]: int(v) for k, v in metrics.items()
                            if k.startswith('diag/')},
-           'launches': {a: getattr(WF, a) for a in (
-               'launches', 'launches_dgrad', 'launches_wgrad',
-               'launches_wide', 'launches_dgrad_wide',
-               'launches_wgrad_wide')}}
+           'launches': {a: getattr(WF, a) for a in K3_COUNTERS}}
     del trainer
     torch.cuda.empty_cache()
     return out
@@ -598,9 +620,11 @@ def phase_sparse_options(dev, n_requests, card):
     SPARSE_OPTIONS_BAR of the output's scale.  DENSE_TAIL_FROM_STAGE 1 (the
     stage-1 grid dense): its peak reckoned first, the bf16 encoder alone
     at the clouds that fit, its fp32 output on one cloud.  Then one
-    flagship training step each on ENGINE 'gather' and on
-    DENSE_TAIL_FROM_STAGE 0 (the wide d feats and d weights).  Returns the
-    wide kernels' launches: forecasts (tail 0) and step (tail 0)."""
+    flagship training step each on ENGINE 'gather', on
+    DENSE_TAIL_FROM_STAGE 0 (the wide d feats and d weights) and on tail 0
+    with fp32 points (COMPUTE_DTYPE 'auto': the fp32 wide kernels, forward,
+    d feats and d weights), its K3 ms a step.  Returns the wide kernels'
+    launches: forecasts (tail 0), step (tail 0) and fp32 step (tail 0)."""
     import math
     import torch
     import streamingflow_tpu_torch as P
@@ -761,16 +785,25 @@ def phase_sparse_options(dev, n_requests, card):
                              f'{entry["fp32"]}')
 
     # one flagship step each: the site engine, and columns all the way (the
-    # wide K3 forward, d feats and d weights)
+    # wide K3 forward, d feats and d weights), on bf16 and on fp32 rows
     steps = {}
     for name, changes in (('gather', {'ENGINE': 'gather'}),
-                          ('tail0', {'DENSE_TAIL_FROM_STAGE': 0})):
+                          ('tail0', {'DENSE_TAIL_FROM_STAGE': 0}),
+                          ('tail0_fp32', {'DENSE_TAIL_FROM_STAGE': 0,
+                                          'COMPUTE_DTYPE': 'auto'})):
         steps[name] = _spconv_step(_sparse_cfg(changes), dev)
     wide['step'] = steps['tail0']['launches']
-    if not all(wide['step'][f'launches_{k}_wide'] for k in ('dgrad',
-                                                            'wgrad')):
+    wide['step_fp32'] = fp32 = steps['tail0_fp32']['launches']
+    if not all(wide['step'][f'launches{k}_wide'] for k in ('', '_dgrad',
+                                                           '_wgrad')):
         raise AssertionError(f'sparse_options tail0 step: wide launches '
                              f'{wide["step"]}')
+    # the fp32 step: every K3 launch on fp32 rows, the wide forward, d
+    # feats and d weights among them
+    if not all(fp32[f'launches{k}_wide'] and fp32[f'launches{k}'] ==
+               fp32[f'launches{k}_fp32'] for k in ('', '_dgrad', '_wgrad')):
+        raise AssertionError(f'sparse_options tail0_fp32 step: launches '
+                             f'{fp32}')
     if steps['gather']['launches']['launches']:
         raise AssertionError('sparse_options gather step launched K3')
     emit({**line, 'steps': steps, 'seconds': time.perf_counter() - t0,
@@ -1190,13 +1223,31 @@ def phase_patch_pool_bwd(cfg, dev, results):
           'bound_us': bound_ms * 1e3, 'bytes': n_bytes})
 
 
-def _winfuse_case(name, feats, geo, w, nz, zmask=None, reps=10):
+def _one_pass_control(name, got, want, tol):
+    """What a one-pass TF32 kernel would give: ``got``, the plain version
+    on the fp32 inputs rounded to TF32 (TF32 off), against ``want`` at the
+    bar ``tol`` the 3xTF32 kernel keeps.  The bar must refuse it, else the
+    case cannot tell 3xTF32 from one pass (inputs that are TF32 values
+    already, as bf16 values are, leave every lo piece zero)."""
+    import torch
+    err = max_err(got, want)[0]
+    if torch.allclose(got.double(), want.double(), **tol):
+        raise AssertionError(f'{name}: one-pass TF32 ({err:.3g} from the '
+                             f'plain version) keeps the bar {tol}: the case '
+                             f'cannot tell 3xTF32 from one pass')
+    return {'max_abs_err': err, 'fails_bar': True}
+
+
+def _winfuse_case(name, feats, geo, w, nz, zmask=None, reps=10,
+                  one_pass=False):
     """K3 vs its plain version on one input; times, bytes and FLOPs.
 
     FLOPs: ``flops_dense_z`` counts every z of every found tap (what the
     fused layout computes), ``flops`` what these inputs need: with
     ``zmask`` (the features are zero at inactive sites, as on the main
-    path) only the products of active input sites."""
+    path) only the products of active input sites.  ``one_pass`` (fp32):
+    the plain version on TF32-rounded inputs must miss the bar
+    (_one_pass_control)."""
     import torch
     from streamingflow_tpu_torch.ops import winfuse as WF
     got = WF.subm_conv_winfuse(feats, geo.nbr, geo.found, w, nz)
@@ -1209,6 +1260,12 @@ def _winfuse_case(name, feats, geo, w, nz, zmask=None, reps=10):
     tol = (dict(rtol=2 ** -7, atol=1e-2) if bf16 else
            dict(rtol=1e-5, atol=1e-5 * scale))
     check_close(f'winfuse {name}', got, want, **tol)
+    control = {}
+    if one_pass:
+        control['one_pass_tf32'] = _one_pass_control(
+            f'winfuse {name}', WF.subm_conv_plain(
+                WF.tf32_rna(feats), geo.nbr, geo.found, WF.tf32_rna(w), nz),
+            want, tol)
     cin, cout = w.shape[1], w.shape[2]
     n_found = int(geo.found.sum())
     flops_dense = 2 * cin * cout * n_found * (3 * nz - 2)
@@ -1228,7 +1285,7 @@ def _winfuse_case(name, feats, geo, w, nz, zmask=None, reps=10):
     n_bytes = (n_rows * feats.shape[1] + got.numel() + w.numel()) * es + \
         geo.nbr.numel() * 4 + geo.found.numel()
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = flops / peak_flops(feats.dtype, cin, cout)
+    t_ops = flops / peak_flops(feats.dtype)
     ms = cuda_ms(lambda: WF.subm_conv_winfuse(feats, geo.nbr, geo.found, w,
                                               nz), reps=reps)
     plain_ms = cuda_ms(lambda: WF.subm_conv_plain(feats, geo.nbr, geo.found,
@@ -1243,7 +1300,7 @@ def _winfuse_case(name, feats, geo, w, nz, zmask=None, reps=10):
                 flops_dense_z=flops_dense,
                 bound_us=max(t_bytes, t_ops) * 1e6,
                 bound_by='bytes' if t_bytes >= t_ops else 'operations',
-                bound_share=max(t_bytes, t_ops) * 1e3 / ms)
+                bound_share=max(t_bytes, t_ops) * 1e3 / ms, **control)
 
 
 def _k3_bwd_ops(geo, zmask, nz, cin, cout):
@@ -1348,7 +1405,7 @@ def _wide_parts_ms(feats, geo, w, nz, reps=5):
 
 
 def _winfuse_bwd_case(name, feats, geo, w, nz, zmask, reps=5,
-                      dgrad=True, ablations=True):
+                      dgrad=True, ablations=True, one_pass=False):
     """K3's backward on the card against the plain forward's autograd over
     the map's full found (the JAX ``_winfuse_bwd``): d feats through the
     forward's kernels over the reversed map (``subm_conv_dgrad``), d weights
@@ -1363,7 +1420,9 @@ def _winfuse_bwd_case(name, feats, geo, w, nz, zmask, reps=5,
     the fp32 or bf16 inputs' products), 1e-4 of the scale: fp32 sums of
     ~10^6 products (the plain fp32 autograd's own distance from it is
     reported beside).  ``ablations=False`` (the wide cases): no
-    gemm_alone_ms and no kernel_parts."""
+    gemm_alone_ms and no kernel_parts.  ``one_pass`` (fp32): d feats and
+    d weights of the plain versions on TF32-rounded inputs must miss their
+    bars (_one_pass_control)."""
     import torch
     from streamingflow_tpu_torch.ops import winfuse as WF
     dev = feats.device
@@ -1412,6 +1471,19 @@ def _winfuse_bwd_case(name, feats, geo, w, nz, zmask, reps=5,
                   dict(rtol=1e-5, atol=1e-5 * df_scale))
         check_close(f'winfuse dgrad {name}', got_df, want_df, **df_tol)
     check_close(f'winfuse wgrad {name}', got_dw, exact_dw, **dw_tol)
+    flipped = WF.flipped_weights(w)
+    control = {'dgrad': None, 'wgrad': None}
+    if one_pass:
+        r = WF.tf32_rna
+        if dgrad:
+            control['dgrad'] = _one_pass_control(
+                f'winfuse dgrad {name}', WF.subm_conv_plain(
+                    r(g), src_t.clamp(min=0), src_t >= 0, r(flipped), nz),
+                want_df, df_tol)
+        control['wgrad'] = _one_pass_control(
+            f'winfuse wgrad {name}', WF.subm_conv_wgrad_plain(
+                r(feats).double(), geo.nbr, full, r(g).double(), nz),
+            exact_dw, dw_tol)
     kept_dw = None
     if not torch.equal(geo.found, full):
         # the backward keeps the taps the forward's plan dropped: the
@@ -1422,7 +1494,7 @@ def _winfuse_bwd_case(name, feats, geo, w, nz, zmask, reps=5,
                                  f'taps do not move the gradient')
     es = feats.element_size()
     ops = _k3_bwd_ops(geo, zmask, nz, cin, cout)
-    peak = peak_flops(feats.dtype, cin, cout)
+    peak = peak_flops(feats.dtype)
     maps = geo.nbr.numel() * 5
     # d feats: the cotangent rows the reversed taps read, the whole output,
     # the weights, the reversed map
@@ -1439,7 +1511,6 @@ def _winfuse_bwd_case(name, feats, geo, w, nz, zmask, reps=5,
         t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / peak
         return max(t_bytes, t_ops) * 1e3, ('bytes' if t_bytes >= t_ops
                                            else 'operations')
-    flipped = WF.flipped_weights(w)
     out = dict(case=name, dtype=str(feats.dtype).split('.')[-1], nz=nz,
                cin=cin, cout=cout, rows=rows,
                active_output_sites=int(zmask.sum()),
@@ -1466,6 +1537,8 @@ def _winfuse_bwd_case(name, feats, geo, w, nz, zmask, reps=5,
                          bytes=n_bytes, bound_ms=bound_ms,
                          bound_by=bound_by)
         out[kind]['bound_share'] = bound_ms / out[kind]['ms']
+        if control[kind]:
+            out[kind]['one_pass_tf32'] = control[kind]
     out['wgrad']['runs_equal'] = len(reruns) + 1
     out['wgrad']['route'] = WF.route(feats.dtype, cin, cout)
     if bf16 and ablations:
@@ -1562,8 +1635,12 @@ def k3_wide_inputs(dev, x):
     nz 5) of the same 5 clouds: the column geometry of
     DENSE_TAIL_FROM_STAGE 0 (the model's own strided column convs and
     caps), random features zeroed at the inactive sites: {name: (feats,
-    geo, weights, nz, zmask)} in bf16."""
+    geo, weights, nz, zmask)}, ``stage3`` and ``stage4`` in bf16 and
+    ``stage3_fp32`` and ``stage4_fp32`` drawn in fp32 (every mantissa bit
+    random: bf16 values cast to fp32 are TF32 values, whose lo pieces in
+    3xTF32 are zero)."""
     import copy
+    import torch
     from streamingflow_tpu_torch.models import lidar_encoder as L
     from streamingflow_tpu_torch.ops import sparse_columns as SC
     se = copy.deepcopy(x.se)
@@ -1573,9 +1650,11 @@ def k3_wide_inputs(dev, x):
     for s, c in ((3, 64), (4, 128)):
         zm = geo.zmasks[s - 1]
         n, v, nz = zm.shape
-        feats = SC.mask_fused(x.rand(n, v, nz * c), zm).reshape(-1, nz * c)
-        cases[f'stage{s}'] = (feats, geo.columns[s - 1], x.weights(c, c),
-                              nz, zm)
+        for leg, dt in (('', torch.bfloat16), ('_fp32', torch.float32)):
+            feats = SC.mask_fused(x.rand(n, v, nz * c, dtype=dt), zm)
+            cases[f'stage{s}{leg}'] = (feats.reshape(-1, nz * c),
+                                       geo.columns[s - 1],
+                                       x.weights(c, c, dt), nz, zm)
     return cases
 
 
@@ -1708,56 +1787,102 @@ def phase_winfuse(dev, results):
     # (DENSE_TAIL_FROM_STAGE 0), bf16 as the forecast and the step run them
     # and fp32, forward and backward, under the same bars, each row's share
     # of its bound, and the bf16 forward split by its ablations
+    # (the fp32 cases on inputs drawn in fp32, each with the one-pass TF32
+    # control)
     wide_cases, wide_bwd = [], []
-    for name, (f, geo, w, nz, zm) in k3_wide_inputs(dev, x).items():
+    wide = k3_wide_inputs(dev, x)
+    for name in ('stage3', 'stage4'):
+        f, geo, w, nz, zm = wide[name]
+        f32_, _, w32, _, _ = wide[f'{name}_fp32']
         wide_cases += [
             _winfuse_case(name, f, geo, w, nz, zm, reps=5),
-            _winfuse_case(f'{name}_fp32', f.float(), geo, w.float(), nz, zm,
-                          reps=2)]
+            _winfuse_case(f'{name}_fp32', f32_, geo, w32, nz, zm, reps=2,
+                          one_pass=True)]
         wide_bwd += [
             _winfuse_bwd_case(name, f, geo, w, nz, zm, reps=3,
                               ablations=False),
-            _winfuse_bwd_case(f'{name}_fp32', f.float(), geo, w.float(), nz,
-                              zm, reps=2, ablations=False)]
+            _winfuse_bwd_case(f'{name}_fp32', f32_, geo, w32, nz, zm,
+                              reps=2, ablations=False, one_pass=True)]
         wide_cases[-2]['kernel_parts'] = _wide_parts_ms(f, geo, w, nz)
         width = w.shape[2]
-        c = wide_cases[-2]
-        results[f'winfuse_wide{width}'] = dict(
-            max_abs_err=c['max_abs_err'], ms=c['kernel_ms'],
-            plain_ms=c['twin_ms'], library_ms=None,
-            bound_ms=c['bound_us'] / 1e3, bound_by=c['bound_by'])
-        for kind in ('dgrad', 'wgrad'):
-            c = wide_bwd[-2][kind]
-            results[f'winfuse_{kind}_wide{width}'] = dict(
-                max_abs_err=c['max_abs_err'], ms=c['ms'],
-                plain_ms=c['plain_ms'], library_ms=None,
-                bound_ms=c['bound_ms'], bound_by=c['bound_by'])
-        for kind in ('', 'dgrad_', 'wgrad_'):
-            r = results[f'winfuse_{kind}wide{width}']
-            r['bound_share'] = r['bound_ms'] / r['ms']
+        for leg, fwd, bwd_case in (('', wide_cases[-2], wide_bwd[-2]),
+                                   ('_fp32', wide_cases[-1], wide_bwd[-1])):
+            results[f'winfuse{leg}_wide{width}'] = dict(
+                max_abs_err=fwd['max_abs_err'], ms=fwd['kernel_ms'],
+                plain_ms=fwd['twin_ms'], library_ms=None,
+                bound_ms=fwd['bound_us'] / 1e3, bound_by=fwd['bound_by'])
+            for kind in ('dgrad', 'wgrad'):
+                c = bwd_case[kind]
+                results[f'winfuse_{kind}{leg}_wide{width}'] = dict(
+                    max_abs_err=c['max_abs_err'], ms=c['ms'],
+                    plain_ms=c['plain_ms'], library_ms=None,
+                    bound_ms=c['bound_ms'], bound_by=c['bound_by'])
+            for kind in ('', '_dgrad', '_wgrad'):
+                r = results[f'winfuse{kind}{leg}_wide{width}']
+                r['bound_share'] = r['bound_ms'] / r['ms']
+        if width == 64:
+            # a forced drop at 64 channels (fp32): each cloud's stage-3 map
+            # through a window plan of one block plus 8 rows and no
+            # residual blocks; the backward keeps every found tap
+            cap3 = geo.nbr.shape[1] // n
+            founds = []
+            for i in range(n):
+                sl = slice(i * cap3, (i + 1) * cap3)
+                cmap = SC.ColumnMap(geo.nbr[:, sl] - i * cap3,
+                                    geo.found[:, sl])
+                founds.append(WF.fused_found(cmap, se.WINDOW_BLOCK,
+                                             se.WINDOW_BLOCK + 8, 0)[0])
+            geo3_drop = L.ColumnGeo(geo.nbr, torch.cat(founds, 1), None,
+                                    geo.grad_found, geo.src_t)
+            if torch.equal(geo3_drop.found, geo.found):
+                raise AssertionError('winfuse: the forced plan at stage 3 '
+                                     'dropped no tap')
+            wide_cases.append(_winfuse_case(
+                f'{name}_drop_fp32', f32_, geo3_drop, w32, nz, zm, reps=2,
+                one_pass=True))
+            wide_bwd.append(_winfuse_bwd_case(
+                f'{name}_drop_fp32', f32_, geo3_drop, w32, nz, zm, reps=2,
+                ablations=False, one_pass=True))
+    del wide
     # the wide kernels past the row masks' 32 z: the flagship's 41 z on the
     # first cloud's stage-1 columns, 64 -> 128 (pitch 64, two channel
-    # groups) and, for d feats, 128 -> 64 (pitch 128, one group)
+    # groups) and, for d feats, 128 -> 64 (pitch 128, one group), bf16 and
+    # fp32 (drawn in fp32, with the one-pass control)
     cs1_0 = SC.ColumnSet(*(None if t is None else t[:1] for t in cs1))
     geo1_0 = L.column_geometry(cs1_0, tuple(se.SPARSE_SHAPE)[:2], se)
-    f41 = SC.mask_fused(rand(1, cap1, nz1 * 64), cs1_0.zmask).reshape(
-        -1, nz1 * 64)
-    w41 = weights(64, 128)
-    wide_cases.append(_winfuse_case(f'wide_nz{nz1}', f41, geo1_0, w41, nz1,
-                                    cs1_0.zmask, reps=2))
-    wide_bwd.append(_winfuse_bwd_case(f'wide_nz{nz1}', f41, geo1_0, w41,
-                                      nz1, cs1_0.zmask, reps=2,
-                                      ablations=False))
+    for leg, dt in (('', torch.bfloat16), ('_fp32', f32)):
+        f41 = SC.mask_fused(rand(1, cap1, nz1 * 64, dtype=dt),
+                            cs1_0.zmask).reshape(-1, nz1 * 64)
+        w41 = weights(64, 128, dt)
+        wide_cases.append(_winfuse_case(f'wide_nz{nz1}{leg}', f41, geo1_0,
+                                        w41, nz1, cs1_0.zmask, reps=2,
+                                        one_pass=dt == f32))
+        wide_bwd.append(_winfuse_bwd_case(f'wide_nz{nz1}{leg}', f41, geo1_0,
+                                          w41, nz1, cs1_0.zmask, reps=2,
+                                          ablations=False,
+                                          one_pass=dt == f32))
     results['winfuse_wgrad']['gemm_alone_ms'] = \
         main_bwd['wgrad']['gemm_alone_ms']
-    # the bf16 tensor-core d weights (namespace tc) keeps its sums in
-    # registers: no spill
+    # the bf16 tensor-core d weights (namespace tc), the fp32 wide forward
+    # and d weights (namespace wide_tf32) keep their sums and split
+    # operands in registers, and the wide d weights' item lists (bf16 and
+    # fp32) and the fp32 rows' masks keep theirs too: no spill (checked
+    # after the phase's line is printed)
     wgrad_ptxas = _ptxas_report(cuda_lib.BUILD_LOG.get('winfuse_wgrad', ''))
-    mma_ptxas = [r for r in wgrad_ptxas if '2tc9wgrad_mma' in r['kernel']]
-    if not mma_ptxas or any(r['spill_stores'] or r['spill_loads']
-                            for r in mma_ptxas):
-        raise AssertionError(f'winfuse wgrad: the bf16 kernel spills or is '
-                             f'missing from the ptxas report: {mma_ptxas}')
+    fp32_ptxas = _ptxas_report(cuda_lib.BUILD_LOG.get('winfuse_fp32', ''))
+    spills = []
+    for what, report, tag in (
+            ('the bf16 d weights', wgrad_ptxas, '2tc9wgrad_mma'),
+            ('the fp32 wide d weights', wgrad_ptxas, 'wide_tf329wgrad_mma'),
+            ('the wide d weights\' lists', wgrad_ptxas, '4wide10wgrad_list'),
+            ('the fp32 wide forward', fp32_ptxas,
+             'wide_tf3214winfuse_kernel'),
+            ('the fp32 rows\' masks', fp32_ptxas, '7rowmask9row_masks')):
+        mine = [r for r in report if tag in r['kernel']]
+        if not mine or any(r['spill_stores'] or r['spill_loads']
+                           for r in mine):
+            spills.append(f'{what} spills or is missing from the ptxas '
+                          f'report: {mine}')
     emit({'phase': 'winfuse', 'clouds': n,
           'active_columns': {'stage1': int(cs1.col_mask.sum()),
                              'stage2': int(cs2.col_mask.sum())},
@@ -1770,8 +1895,7 @@ def phase_winfuse(dev, results):
           'cases': cases, 'backward_cases': bwd,
           'wide_cases': wide_cases, 'wide_backward_cases': wide_bwd,
           'ptxas': _ptxas_report(cuda_lib.BUILD_LOG.get('winfuse', '')),
-          'ptxas_fp32': _ptxas_report(cuda_lib.BUILD_LOG.get('winfuse_fp32',
-                                                            '')),
+          'ptxas_fp32': fp32_ptxas,
           'wgrad_ptxas': wgrad_ptxas,
           'down1_plain_ms_per_cloud': down1_ms,
           'conv_input_pitch_rows_ms': pitch_ms,
@@ -1784,6 +1908,8 @@ def phase_winfuse(dev, results):
                         'pre-gathered A_k^T B (gathered outside the timed '
                         'call): a floor for the products alone, not a port '
                         'of the function'})
+    if spills:
+        raise AssertionError('winfuse: ' + '; '.join(spills))
 
 
 def _tiny_lidar_config():
@@ -3934,6 +4060,43 @@ def imported_checkpoint(tree, tmp):
     return seeded, report, out_dir
 
 
+# the fp32 evaluation at DENSE_TAIL_FROM_STAGE 0 against tail 3 (the
+# masked BN makes them one function), of each output's scale
+TAIL0_EVAL_BAR = 1e-4
+
+
+def _evaluate(out_dir, dev, tail=None):
+    """``evaluate.main`` on the imported checkpoint in ``out_dir``
+    (tools/ab.py's evaluate_main: the checkpoint's own config;
+    DENSE_TAIL_FROM_STAGE ``tail`` where given), each forecast's outputs
+    kept (fp32, on the CPU) and K2's and K3's launches counted around it:
+    (results, outputs, launches, the printed text)."""
+    import torch
+    from streamingflow_tpu_torch import evaluate as E
+    from streamingflow_tpu_torch.data.dataloader import stop_worker_server
+    from streamingflow_tpu_torch.ops import patch_pool as PP
+    from streamingflow_tpu_torch.ops import winfuse as WF
+    from streamingflow_tpu_torch.tools.ab import evaluate_main
+    outputs = []
+
+    def keep(forward, *a, **kw):
+        out = forward(*a, **kw)
+        outputs.append({k: v.float().cpu() for k, v in out.items()
+                        if torch.is_tensor(v)})
+        return out
+    PP.launches = WF.launches = WF.launches_fp32 = 0
+    WF.launches_wide = {}
+    try:
+        results, text = evaluate_main(E, out_dir, dev, tail, keep)
+    finally:
+        stop_worker_server()
+    launches = {'patch_pool': PP.launches,
+                'winfuse': WF.launches - WF.launches_fp32,
+                'winfuse_fp32': WF.launches_fp32,
+                'wide': dict(WF.launches_wide)}
+    return results, outputs, launches, text
+
+
 def phase_reference_import(dev, card, tree, tmp):
     """A reference (Lightning) checkpoint into the port at flagship width on
     spconv8x: a seeded train module's weights written under the
@@ -3943,20 +4106,18 @@ def phase_reference_import(dev, card, tree, tmp):
     seeded weights bit for bit outside the distribution head; one bf16
     forecast with each set of weights, within the forecast's own
     run-to-run spread; ``evaluate.main`` on the imported checkpoint over
-    phase cli's tree, K2 and K3 counted; ``distribution_forward`` of the
-    three methods at the flagship present state, card against CPU (1e-5
-    of the scale).  Returns the evaluation's launches (K3 by route:
-    bf16, fp32)."""
-    import io
+    phase cli's tree, K2 and K3 counted; the same at DENSE_TAIL_FROM_STAGE
+    0 (the fp32 wide K3 kernels at stages 3 and 4), each forecast's
+    outputs within TAIL0_EVAL_BAR of the tail-3 ones' scale;
+    ``distribution_forward`` of the three methods at the flagship present
+    state, card against CPU (1e-5 of the scale).  Returns the evaluations'
+    launches (K3 by route: bf16, fp32; the tail-0 one's wide launches by
+    width)."""
     import torch
     import streamingflow_tpu_torch as P
-    from streamingflow_tpu_torch import evaluate as E
     from streamingflow_tpu_torch.convert import HEAD
     from streamingflow_tpu_torch.data import make_batch
-    from streamingflow_tpu_torch.data.dataloader import stop_worker_server
     from streamingflow_tpu_torch.models import distributions as D
-    from streamingflow_tpu_torch.ops import patch_pool as PP
-    from streamingflow_tpu_torch.ops import winfuse as WF
     from streamingflow_tpu_torch.training.checkpoint import CheckpointManager
     t0 = time.perf_counter()
     seeded, report, out_dir = imported_checkpoint(tree, tmp)
@@ -4007,20 +4168,38 @@ def phase_reference_import(dev, card, tree, tmp):
 
     # evaluate on the imported checkpoint, K2 and K3 counted around it (K3
     # by route: the fp32 points take the fp32 kernels, COMPUTE_DTYPE 'auto')
-    PP.launches = WF.launches = WF.launches_fp32 = 0
-    text = io.StringIO()
-    try:
-        with contextlib.redirect_stdout(text):
-            results = E.main(['--checkpoint', out_dir, '--device', str(dev)])
-    finally:
-        stop_worker_server()
-    launches = {'patch_pool': PP.launches,
-                'winfuse': WF.launches - WF.launches_fp32,
-                'winfuse_fp32': WF.launches_fp32}
-    print(text.getvalue(), end='', flush=True)
-    if not (launches['patch_pool'] and WF.launches):
+    results, outs3, launches, text = _evaluate(out_dir, dev)
+    print(text, end='', flush=True)
+    if not (launches['patch_pool'] and launches['winfuse_fp32']):
         raise AssertionError(f'reference_import: evaluate launched '
                              f'{launches}')
+    # the same at DENSE_TAIL_FROM_STAGE 0: stages 3 and 4 on the fp32 wide
+    # K3 kernels, every forecast's outputs within TAIL0_EVAL_BAR of the
+    # tail-3 ones' scale
+    results0, outs0, launches0, _ = _evaluate(out_dir, dev, tail=0)
+    if launches0['winfuse'] or not all(launches0['wide'].get(width)
+                                       for width in (64, 128)):
+        raise AssertionError(f'reference_import tail 0: evaluate launched '
+                             f'{launches0}')
+    tail0 = {'forecasts': len(outs0),
+             'median_forecast_s': statistics.median(results0['forward_s']),
+             'median_forecast_s_tail3': statistics.median(
+                 results['forward_s']),
+             'launches': launches0, 'bar': TAIL0_EVAL_BAR, 'outputs': {}}
+    if len(outs0) != len(outs3) or not outs0:
+        raise AssertionError(f'reference_import tail 0: {len(outs0)} '
+                             f'forecasts against {len(outs3)}')
+    for key in outs3[0]:
+        err = max(float((o0[key] - o3[key]).abs().max())
+                  for o0, o3 in zip(outs0, outs3))
+        scale = max(float(o3[key].abs().max()) for o3 in outs3)
+        tail0['outputs'][key] = {'max_abs_err': err, 'scale': scale}
+        if not err <= TAIL0_EVAL_BAR * scale:
+            raise AssertionError(f'reference_import tail 0: {key} {err:.3g} '
+                                 f'from tail 3, scale {scale:.3g}')
+    launches['wide_fp32'] = launches0['wide']
+    launches['forecasts'] = len(outs0)
+    del outs0, outs3
 
     # the distribution head at the flagship present state (200 x 200),
     # card vs CPU.  The Gaussian heads' four stride-2 Bottlenecks need a
@@ -4063,7 +4242,8 @@ def phase_reference_import(dev, card, tree, tmp):
           'tensors_equal': compared, 'forecast': agree,
           'eval': {'vehicle_iou': results['iou'].tolist(),
                    **{k: v.tolist() for k, v in results['pq'].items()}},
-          'eval_launches': launches, 'distribution_forward': heads,
+          'eval_launches': launches, 'eval_tail0': tail0,
+          'distribution_forward': heads,
           'seconds': time.perf_counter() - t0, 'card': card})
     return launches
 
@@ -4258,6 +4438,27 @@ def main(argv=None):
               ('winfuse', 'winfuse', 153, 'forecast', ''),
               ('winfuse_dgrad', 'winfuse', 288, 'step', '_dgrad'),
               ('winfuse_wgrad', 'winfuse_wgrad', 288, 'step', '_wgrad'))
+          for width in (64, 128)],
+        # the fp32 wide rows (3xTF32): the forward's launches of the
+        # imported checkpoint's tail-0 evaluation (3 forecasts), and each
+        # row's of the fp32 tail-0 step (phase sparse_options)
+        *[dict(name=f'{kind}_fp32_wide{width}', route='cuda',
+               source=f'streamingflow_tpu_torch/csrc/{src}',
+               replaces=f'streamingflow_tpu/ops/pallas_winfuse.py:{line}',
+               launches=(import_launches['wide_fp32'].get(width, 0)
+                         if key == '' else step.get(width, 0)),
+               forecast_launches=(import_launches['wide_fp32'].get(width, 0)
+                                  / import_launches['forecasts']
+                                  if key == '' else 0),
+               step_launches=step.get(width, 0),
+               library='none: no one call computes this function',
+               **results[f'{kind}_fp32_wide{width}'])
+          for kind, src, line, key in (
+              ('winfuse', 'winfuse_wide_tf32.cuh', 153, ''),
+              ('winfuse_dgrad', 'winfuse_wide_tf32.cuh', 288, '_dgrad'),
+              ('winfuse_wgrad', 'winfuse_wgrad_wide_tf32.cuh', 288,
+               '_wgrad'))
+          for step in [wide_launches['step_fp32'][f'launches{key}_wide']]
           for width in (64, 128)],
         dict(name='bin_sum_grouped', route='cuda',
              source='streamingflow_tpu_torch/csrc/bin_sum_grouped.cu',

@@ -51,8 +51,9 @@
 //     walks tiles b, b + gridDim.x, ..., so neighbouring tiles' shared
 //     source rows meet in L2.  The product warps load the next k16 step's
 //     A and B fragments before the current step's mma.
-// fp32 rows take csrc/winfuse_fp32.cu (3xTF32 on the tensor cores up to
-// 32 channels, the CUDA cores past them).
+// fp32 rows take csrc/winfuse_fp32.cu (3xTF32 on the tensor cores at
+// every width: the narrow kernel's structure up to 32 channels, the wide
+// one's past them).
 //
 // Past 32 channels in or out (stages 3 and 4 on columns: 64 and 128, with
 // DENSE_TAIL_FROM_STAGE 0, 4 or 5):
@@ -66,8 +67,9 @@
 //     n-tiles) and 3 m16 fragments of a tile of up to 48 columns (tile*nz
 //     items: 190 of 192 at stage 4, 374 of 384 at stage 3).  Items run
 //     z-major (neighbouring columns at one z a fragment), and a first
-//     kernel (row_masks) marks the source rows that are not all zero (up to
-//     32 z; past it every z is marked): only those of found columns are
+//     kernel (csrc/winfuse_masks.cuh's row_masks) marks the source rows
+//     that are not all zero (-0 counting as zero; up to 32 z; past it
+//     every z is marked): only those of found columns are
 //     staged, and a fragment none of whose rows is marked at a z tap skips
 //     it (neighbouring columns' inputs at one z are inactive together more
 //     often than a column's z are).  Every
@@ -99,6 +101,8 @@ namespace {
 constexpr int kTaps = 9;
 constexpr int kMaxSmem = 232448;  // bytes a block may have on an H100
 
+#include "winfuse_masks.cuh"
+
 // ------------------------------------------------------------------ bf16
 
 #include "winfuse_tc.cuh"
@@ -111,8 +115,13 @@ constexpr int kMaxSmem = 232448;  // bytes a block may have on an H100
 // cross into shared memory once a tile.
 namespace wide {
 
+using rowmask::kMaxMaskZ;
+using rowmask::row_live;
 using tc::bulk_copy;
+using tc::cp_async16;
+using tc::cp_async_arrive;
 using tc::ldmatrix_x4;
+using tc::mbar_expect_tx;
 using tc::mbar_init;
 using tc::mbar_wait;
 using tc::mma_bf16;
@@ -124,7 +133,6 @@ constexpr int kFrags = 3;            // m16 fragments a warp owns in a tile
 constexpr int kMaxTile = 48;         // columns of a tile
 constexpr int kMaxItems = kWarps * kFrags * 16;
 constexpr int kCopyBytes = 16384;    // bytes of one bulk copy of a slab
-constexpr int kMaxMaskZ = 32;        // z of the rows' activity masks
 
 // A configuration: channel pitch CP, NG groups of 64 output channels, TZS
 // z taps a substep (3: a whole tap, 1: one z tap), a ring of SLOTS
@@ -156,60 +164,12 @@ struct Pick {
   using C = Cfg<CP, NG, kTZS, kSlots>;
 };
 
-// bytes that bulk copies will bring to bar, without an arrival
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(src)
-               : "memory");
-}
-// this thread's arrival on bar, made when its cp.async copies so far land
-__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
-                   "r"(bar)
-               : "memory");
-}
 // 16-byte chunk j of staged row r lies at chunk j ^ swizzle(r): the 8 rows
 // of an ldmatrix (8 neighbouring columns at one z, rows nz apart, nz odd)
 // then fall in 8 different 16-byte bank groups
 template <int CP>
 __device__ __forceinline__ int swizzle(int r) {
   return CP == 32 ? (r >> 1) & 3 : r & 7;
-}
-
-// whether z row z (>= 0) of a tap's source row is staged and read, for
-// the row's mask m: 0 where the tap is not taken, all ones where no masks
-// are kept (nz past kMaxMaskZ), and then any of its bits stands for every
-// z (the shift wraps at kMaxMaskZ = 32, the mask's width)
-__device__ __forceinline__ bool row_live(uint32_t m, int z) {
-  return (m >> (z & (kMaxMaskZ - 1))) & 1u;
-}
-
-// masks[row] of the source rows (R, nz*CP): bit z where z row z is not
-// all zero (nz <= kMaxMaskZ)
-__global__ void __launch_bounds__(256)
-row_masks(const __nv_bfloat16* __restrict__ feats, uint32_t* __restrict__ masks,
-          int n_rows, int nz, int cp) {
-  const int row = blockIdx.x * 256 + threadIdx.x;
-  if (row >= n_rows) return;
-  const uint4* p =
-      reinterpret_cast<const uint4*>(feats) + static_cast<size_t>(row) * nz *
-                                                  (cp / 8);
-  uint32_t m = 0;
-  for (int z = 0; z < nz; ++z) {
-    uint32_t any = 0;
-    for (int q = 0; q < cp / 8; ++q) {
-      const uint4 x = __ldg(p + z * (cp / 8) + q);
-      any |= x.x | x.y | x.z | x.w;
-    }
-    m |= (any != 0u) << z;
-  }
-  masks[row] = m;
 }
 
 // A tile of `tile` columns has n_items = tile*nz items (c, zo), numbered
@@ -483,11 +443,10 @@ cudaError_t launch(const void* feats, const int* src, uint32_t* masks,
            &per_sm, kernel, kThreads, smem)) != cudaSuccess)
     return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  if (nz <= kMaxMaskZ && n_rows > 0) {
-    row_masks<<<(n_rows + 255) / 256, 256, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(feats), masks, n_rows, nz, CP);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
+  if ((err = rowmask::launch_row_masks(
+           static_cast<const __nv_bfloat16*>(feats), masks, n_rows, nz, CP,
+           stream)) != cudaSuccess)
+    return err;
   // one block row a chunk of 64*NG output channels
   const int chunks = (cout + 64 * NG - 1) / (64 * NG);
   const int tiles = (n_out + tile - 1) / tile;

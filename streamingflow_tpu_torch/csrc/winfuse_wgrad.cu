@@ -80,9 +80,10 @@
 //     every run.  What bounds it: the listed items' rows from L2, staged
 //     once for each of the 9 or 27 pieces, and one pass over the whole
 //     cotangent for the lists.
-//   - fp32 (the first port's CUDA-core design, below): block (x, y) owns
-//     the 32 x 32 chunk y of (Cin, Cout), its units over that chunk; the
-//     partials still add in block order.
+//   - fp32 (namespace wide_tf32, csrc/winfuse_wgrad_wide_tf32.cuh): the
+//     same lists and pieces in 3xTF32, k8 steps of 8 listed items, the
+//     staged items 8 words past a multiple of 32 for the 32-bit fragment
+//     loads; the partials add in block order as before.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -100,285 +101,6 @@ namespace {
 constexpr int kTaps = 9;
 constexpr int kMaxSmem = 232448;  // bytes a block may have on an H100
 
-// ------------------------------------------------------------------ fp32
-
-namespace fp32 {
-
-constexpr int kThreads = 768;          // threads a block, at most
-constexpr int kMaxTv = 32;             // columns a chunk, at most
-constexpr int kSmemBudget = 96 * 1024;  // bytes of a chunk's staging
-
-// The first port's design, on the CUDA cores, run past 32 channels in or
-// out:
-//   - A block walks chunks of TV output columns (grid-stride).  It stages
-//     the chunk's cotangent rows in shared memory (one contiguous read),
-//     marks the (column, z) items whose row is not all zero and lists them
-//     in ascending order (one warp, ballots).
-//   - Then tap by tap: the source rows of the chunk's columns that have
-//     the tap and an active item, between zero z-halo rows, so item
-//     (c, zo) of z tap tz reads staged row zo + tz of column c.  A warp
-//     stages a column, 16 bytes (4 values) a lane.
-//   - Block (x, y) owns the 32 x 32 chunk y of (Cin, Cout) (chunk
-//     y % ceil(Cin / 32) of Cin, y / ceil(Cin / 32) of Cout); the staging
-//     keeps whole rows.  Each thread owns one (tz, i, 4 output channels)
-//     unit of the chunk for every tap: 36 fp32 sums in registers for the
-//     whole run.  Thread groups of larger blocks take every groups-th item.
-//   - At the end the groups' sums are added in a fixed order in shared
-//     memory and each block writes its chunk of one partial (27, Cin,
-//     Cout).
-//
-// Shared memory of a chunk of tv columns (rows = nz + 2):
-//   g_s    [tv * nz][cout4] cotangent rows, channels past cout zero
-//   x_s    [tv][rows][cin] the current tap's source rows at z + 1 (rows 0
-//          and nz + 1 are the z halo)
-//   item_s [tv * nz] the active items (c * nz + zo), ascending
-//   flag_s [tv * nz] 1 where the item's cotangent row is not all zero
-//   src_s  [9][tv] the chunk's source row of each tap, -1 if not taken
-//   colf_s [tv] 1 where the column has an active item
-//   count_s     the number of active items
-__global__ void __launch_bounds__(kThreads)
-wgrad_kernel(const float* __restrict__ feats, const int* __restrict__ src,
-             const float* __restrict__ g, float* __restrict__ part,
-             int n_out, int nz, int cin, int cout, int tv, int groups,
-             int vec_f, int vec_g) {
-  extern __shared__ float4 smem4[];
-  const int cout4 = (cout + 3) & ~3;  // the staged cotangent rows' pitch
-  // this block's chunk of (Cin, Cout)
-  const int a_chunks = (cin + 31) / 32;
-  const int i0 = 32 * (blockIdx.y % a_chunks);
-  const int j0 = 32 * (blockIdx.y / a_chunks);
-  const int cin_c = min(32, cin - i0);
-  const int cout_c = min(32, cout - j0);
-  const int j4n = ((cout_c + 3) & ~3) >> 2;
-  const int units = 3 * cin_c * j4n;
-  // the launch's units a group: those of a whole 32 x 32 chunk
-  const int units_pad = blockDim.x / groups;
-  const int rows = nz + 2;
-  const int n_items = tv * nz;
-  float* g_s = reinterpret_cast<float*>(smem4);
-  float* x_s = g_s + n_items * cout4;
-  int* item_s = reinterpret_cast<int*>(x_s + tv * rows * cin);
-  int* flag_s = item_s + n_items;
-  int* src_s = flag_s + n_items;
-  int* colf_s = src_s + kTaps * tv;
-  int* count_s = colf_s + tv;
-
-  const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
-  const int unit = tid % units_pad;
-  const int group = tid / units_pad;  // a whole warp is in one group
-  const bool mine = unit < units;
-  const int tz = unit / (cin_c * j4n);
-  const int ci = (unit / j4n) % cin_c;
-  const int j4 = unit % j4n;
-  float acc[kTaps][4];
-#pragma unroll
-  for (int k = 0; k < kTaps; ++k)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[k][q] = 0.f;
-
-  const int seg = rows * cin;  // a staged column: nz rows and the halo
-  const int row_in = nz * cin;
-  const int row_g = nz * cout;
-  const int warp = tid >> 5, lane = tid & 31, n_warps = nthr >> 5;
-  // the halo rows stay zero: the staging writes rows 1 .. nz only
-  for (int e = tid; e < tv * seg; e += nthr) x_s[e] = 0.f;
-  const int n_chunks = (n_out + tv - 1) / tv;
-  for (int chunk = blockIdx.x; chunk < n_chunks; chunk += gridDim.x) {
-    const int v0 = chunk * tv;
-    const int nc = min(tv, n_out - v0);
-    const float* gc = g + static_cast<long long>(v0) * row_g;
-    if (vec_g) {
-      // the chunk's rows are one contiguous run of g, 16 bytes a load
-      const int n = nc * row_g;
-      const float4* gv = reinterpret_cast<const float4*>(gc);
-      for (int q = tid; q < n / 4; q += nthr)
-        reinterpret_cast<float4*>(g_s)[q] = __ldg(gv + q);
-      for (int e = n + tid; e < n_items * cout; e += nthr) g_s[e] = 0.f;
-    } else if (cout4 == cout) {
-      const int n = nc * nz * cout;
-      for (int e = tid; e < n_items * cout; e += nthr)
-        g_s[e] = e < n ? gc[e] : 0.f;
-    } else {
-      for (int e = tid; e < n_items * cout4; e += nthr) {
-        const int it = e / cout4;
-        const int j = e - it * cout4;
-        g_s[e] = it < nc * nz && j < cout
-                     ? gc[static_cast<long long>(it) * cout + j]
-                     : 0.f;
-      }
-    }
-    for (int e = tid; e < kTaps * tv; e += nthr) {
-      const int k = e / tv;
-      const int c = e - k * tv;
-      src_s[e] = c < nc ? src[static_cast<long long>(k) * n_out + v0 + c]
-                        : -1;
-    }
-    __syncthreads();
-    for (int it = tid; it < n_items; it += nthr) {
-      // the block's output channels of the row
-      const float4* r =
-          reinterpret_cast<const float4*>(g_s + it * cout4 + j0);
-      bool any = false;
-      for (int q = 0; q < j4n; ++q) {
-        const float4 a = r[q];
-        any |= a.x != 0.f || a.y != 0.f || a.z != 0.f || a.w != 0.f;
-      }
-      flag_s[it] = any;
-    }
-    __syncthreads();
-    if (tid < 32) {
-      // ascending order, so every run sums in the same order
-      int base = 0;
-      for (int s0 = 0; s0 < n_items; s0 += 32) {
-        const int it = s0 + tid;
-        const bool f = it < n_items && flag_s[it];
-        const unsigned m = __ballot_sync(0xffffffffu, f);
-        if (f) item_s[base + __popc(m & ((1u << tid) - 1u))] = it;
-        base += __popc(m);
-      }
-      if (tid == 0) *count_s = base;
-    }
-    for (int c = tid; c < tv; c += nthr) {
-      int f = 0;
-      for (int z = 0; z < nz; ++z) f |= flag_s[c * nz + z];
-      colf_s[c] = f;
-    }
-    __syncthreads();
-    const int n_act = *count_s;
-    if (n_act == 0) continue;  // the same for every thread
-
-#pragma unroll
-    for (int k = 0; k < kTaps; ++k) {
-      // a warp a column, 16 bytes a lane where the rows allow it; columns
-      // without the tap or without an active item are left unread
-      for (int c = warp; c < nc; c += n_warps) {
-        const int s = src_s[k * tv + c];
-        if (s < 0 || !colf_s[c]) continue;
-        float* xr = x_s + c * seg + cin;
-        const float* fr = feats + static_cast<long long>(s) * row_in;
-        if (vec_f) {
-          const float4* fv = reinterpret_cast<const float4*>(fr);
-          for (int q = lane; q < row_in / 4; q += 32)
-            reinterpret_cast<float4*>(xr)[q] = __ldg(fv + q);
-        } else {
-          for (int e = lane; e < row_in; e += 32) xr[e] = fr[e];
-        }
-      }
-      __syncthreads();
-      if (mine) {
-        for (int a = group; a < n_act; a += groups) {
-          const int it = item_s[a];
-          const int c = it / nz;
-          if (src_s[k * tv + c] < 0) continue;
-          const int zo = it - c * nz;
-          const float xv = x_s[(c * rows + zo + tz) * cin + i0 + ci];
-          const float4 gv = reinterpret_cast<const float4*>(
-              g_s)[it * (cout4 >> 2) + (j0 >> 2) + j4];
-          acc[k][0] = fmaf(xv, gv.x, acc[k][0]);
-          acc[k][1] = fmaf(xv, gv.y, acc[k][1]);
-          acc[k][2] = fmaf(xv, gv.z, acc[k][2]);
-          acc[k][3] = fmaf(xv, gv.w, acc[k][3]);
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-  // one partial a block (its chunk of it): the groups' sums added in group
-  // order
-  const int n_w = 27 * cin * cout;
-  const int n_wc = 27 * cin_c * cout_c;
-  float* out = part + static_cast<long long>(blockIdx.x) * n_w;
-  __syncthreads();
-  float* red_s = reinterpret_cast<float*>(smem4);
-  if (groups > 1) {
-    for (int e = tid; e < n_wc; e += nthr) red_s[e] = 0.f;
-    __syncthreads();
-  }
-  for (int q = 0; q < groups; ++q) {
-    if (mine && group == q) {
-#pragma unroll
-      for (int k = 0; k < kTaps; ++k)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          const int j = j4 * 4 + jj;
-          if (j >= cout_c) continue;
-          if (groups == 1) {
-            out[((3 * k + tz) * cin + i0 + ci) * cout + j0 + j] =
-                acc[k][jj];
-          } else {
-            red_s[((3 * k + tz) * cin_c + ci) * cout_c + j] += acc[k][jj];
-          }
-        }
-    }
-    if (groups > 1) __syncthreads();
-  }
-  if (groups > 1)
-    for (int e = tid; e < n_wc; e += nthr) {
-      const int j = e % cout_c;
-      const int ci_e = (e / cout_c) % cin_c;
-      const int t = e / (cout_c * cin_c);
-      out[(t * cin + i0 + ci_e) * cout + j0 + j] = red_s[e];
-    }
-}
-
-// launches wgrad_kernel; *grid gets the number of partials it writes
-cudaError_t launch(const float* feats, const int* src, const float* g,
-                   float* part, int max_parts, int n_out, int nz, int cin,
-                   int cout, int sms, cudaStream_t st, int* grid_out) {
-  const int cout4 = (cout + 3) & ~3;
-  // a block's units: those of its chunk of (Cin, Cout), at most 32 x 32
-  const int cin_c = cin < 32 ? cin : 32;
-  const int cout_c = cout < 32 ? cout : 32;
-  const int units = 3 * cin_c * (((cout_c + 3) & ~3) / 4);
-  const int units_pad = (units + 31) & ~31;
-  if (units_pad > kThreads) return cudaErrorInvalidValue;
-  const int groups = kThreads / units_pad;
-  const int threads = units_pad * groups;
-  const int rows = nz + 2;
-  const size_t per_col =
-      (static_cast<size_t>(nz) * cout4 + static_cast<size_t>(rows) * cin) *
-          sizeof(float) +
-      (2 * static_cast<size_t>(nz) + kTaps + 1) * sizeof(int);
-  const int tv = static_cast<int>(
-      per_col >= kSmemBudget ? 1
-                             : (kSmemBudget / per_col > kMaxTv
-                                    ? kMaxTv
-                                    : kSmemBudget / per_col));
-  const int n_wc = 27 * cin_c * cout_c;
-  size_t smem = per_col * tv + sizeof(int);
-  if (groups > 1 && smem < n_wc * sizeof(float))
-    smem = n_wc * sizeof(float);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, wgrad_kernel, threads, smem);
-  if (err != cudaSuccess) return err;
-  const int n_chunks = (n_out + tv - 1) / tv;
-  const int pairs = ((cin + 31) / 32) * ((cout + 31) / 32);
-  int grid = (per_sm > 0 ? per_sm : 1) * sms / pairs;
-  if (grid < 1) grid = 1;
-  if (grid > max_parts) grid = max_parts;
-  if (grid > n_chunks) grid = n_chunks;
-  *grid_out = grid;
-  if (grid == 0) return cudaSuccess;
-  // 16-byte loads where every row starts on 16 bytes (and, for the
-  // source rows, each staged column's first row does too)
-  const int vec_f = (nz * cin) % 4 == 0 && cin % 4 == 0 &&
-                    reinterpret_cast<uintptr_t>(feats) % 16 == 0;
-  const int vec_g = cout % 4 == 0 && (nz * cout) % 4 == 0 &&
-                    reinterpret_cast<uintptr_t>(g) % 16 == 0;
-  wgrad_kernel<<<dim3(grid, pairs), threads, smem, st>>>(
-      feats, src, g, part, n_out, nz, cin, cout, tv, groups, vec_f, vec_g);
-  return cudaGetLastError();
-}
-
-}  // namespace fp32
 
 // ------------------------------------------------------------------ bf16
 
@@ -449,42 +171,55 @@ __device__ __forceinline__ void cp_async16_or_zero(uint32_t dst,
 }
 
 // One warp a chunk of tv columns: the chunk's items (c*nz + zo) whose
-// cotangent row is not all zero (-0 counts as zero), ascending, into
-// lists[chunk * tv * nz ..], their number into counts[chunk].  A row's
-// 16-byte pieces are read by neighbouring lanes.
+// cotangent row (NP values of T, bf16 or fp32) is not all zero (-0 counts
+// as zero), ascending, into lists[chunk * tv * nz ..], their number into
+// counts[chunk].  A row's 16-byte pieces are read by neighbouring lanes:
+// load j of the warp's 32 items reads pieces 32j .. 32j + 31, and its
+// ballot holds item l's kPieces bits (l*kPieces mod 32 on) where j =
+// l*kPieces / 32 (kPieces divides 32), so no flag passes through memory.
+// One warp a chunk and no grid-stride loop: a loop over chunks kept each
+// lane's base address on the stack (ptxas, 4-8 bytes of spill).
+template <typename T, int NP>
 __global__ void __launch_bounds__(256)
-wgrad_list(const __nv_bfloat16* __restrict__ g, int* __restrict__ lists,
-           int* __restrict__ counts, int n_out, int nz, int np, int tv) {
-  __shared__ int flags_s[8][32];
+wgrad_list(const T* __restrict__ g, int* __restrict__ lists,
+           int* __restrict__ counts, int n_out, int nz, int tv) {
+  // every value's magnitude bits of a 32-bit word
+  constexpr uint32_t kMagnitude = sizeof(T) == 2 ? 0x7fff7fffu : 0x7fffffffu;
+  constexpr int kPieces = NP * static_cast<int>(sizeof(T)) / 16;  // a row
+  static_assert(kPieces >= 4 && kPieces <= 32 && 32 % kPieces == 0,
+                "a row's pieces divide a warp's load");
+  constexpr uint32_t kItemBits =
+      kPieces == 32 ? 0xffffffffu : (1u << (kPieces % 32)) - 1u;
   const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
-  const int pieces = np / 8;  // of a row
-  const int n_chunks = (n_out + tv - 1) / tv;
-  for (int c = blockIdx.x * 8 + w; c < n_chunks; c += gridDim.x * 8) {
-    const int v0 = c * tv;
-    const int n_items = min(tv, n_out - v0) * nz;
-    const uint4* rows = reinterpret_cast<const uint4*>(g) +
-                        static_cast<size_t>(v0) * nz * pieces;
-    int base = 0;
-    for (int i0 = 0; i0 < n_items; i0 += 32) {
-      flags_s[w][lane] = 0;
-      __syncwarp();
-      const int n = min(32, n_items - i0) * pieces;
-      for (int e = lane; e < n; e += 32) {
-        const uint4 x = __ldg(rows + static_cast<size_t>(i0) * pieces + e);
-        if (((x.x | x.y | x.z | x.w) & 0x7fff7fffu) != 0u)
-          flags_s[w][e / pieces] = 1;
+  const int my_load = lane * kPieces / 32, my_bit = lane * kPieces % 32;
+  const int c = blockIdx.x * 8 + w;
+  if (c >= (n_out + tv - 1) / tv) return;
+  const int v0 = c * tv;
+  const int n_items = min(tv, n_out - v0) * nz;
+  const uint4* rows = reinterpret_cast<const uint4*>(g) +
+                      static_cast<size_t>(v0) * nz * kPieces;
+  int* list = lists + static_cast<size_t>(c) * tv * nz;
+  int base = 0;
+  for (int i0 = 0; i0 < n_items; i0 += 32, rows += 32 * kPieces) {
+    const int n = min(32, n_items - i0) * kPieces;  // pieces to read
+    uint32_t mine = 0;  // this lane's item's pieces that are not zero
+#pragma unroll
+    for (int j = 0; j < kPieces; ++j) {
+      const int e = 32 * j + lane;
+      bool nonzero = false;
+      if (e < n) {
+        const uint4 x = __ldg(rows + e);
+        nonzero = ((x.x | x.y | x.z | x.w) & kMagnitude) != 0u;
       }
-      __syncwarp();
-      const bool any = flags_s[w][lane] != 0;
-      const uint32_t m = __ballot_sync(0xffffffffu, any);
-      if (any)
-        lists[static_cast<size_t>(c) * tv * nz + base +
-              __popc(m & ((1u << lane) - 1u))] = i0 + lane;
-      base += __popc(m);
-      __syncwarp();
+      const uint32_t b = __ballot_sync(0xffffffffu, nonzero);
+      if (j == my_load) mine = (b >> my_bit) & kItemBits;
     }
-    if (lane == 0) counts[c] = base;
+    const bool any = mine != 0u;  // false past the chunk's items
+    const uint32_t m = __ballot_sync(0xffffffffu, any);
+    if (any) list[base + __popc(m & ((1u << lane) - 1u))] = i0 + lane;
+    base += __popc(m);
   }
+  if (lane == 0) counts[c] = base;
 }
 
 // Block (x, y): tap k = y / (3 / TZ), z taps tz0 = TZ * (y % (3 / TZ)) ..
@@ -673,11 +408,9 @@ cudaError_t launch(const void* feats, const int* src, const void* g,
   *grid_out = 0;
   if (n_chunks == 0) return cudaSuccess;
   int* counts = lists + static_cast<size_t>(n_chunks) * tv * nz;
-  const int list_blocks = (n_chunks + 7) / 8 < 4 * sms ? (n_chunks + 7) / 8
-                                                      : 4 * sms;
-  wgrad_list<<<list_blocks, 256, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(g), lists, counts, n_out, nz, NP,
-      tv);
+  // one warp a chunk
+  wgrad_list<__nv_bfloat16, NP><<<(n_chunks + 7) / 8, 256, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(g), lists, counts, n_out, nz, tv);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t smem = smem_bytes<CP, NP>(tv);
@@ -722,6 +455,10 @@ cudaError_t by_np(int np, const void* feats, const int* src, const void* g,
 
 }  // namespace wide
 
+// ------------------------------------------------------------- fp32, wide
+
+#include "winfuse_wgrad_wide_tf32.cuh"
+
 // out[e] = sum of the blocks' partials, in block order
 __global__ void wgrad_reduce(const float* __restrict__ part,
                              float* __restrict__ out, int n_parts, int n_w) {
@@ -749,26 +486,29 @@ cudaError_t reduce(const float* part, void* out, int n_parts, int n_w,
 
 }  // namespace
 
-// feats (R, nz*cp) and g (n_out, nz*np) fp32, src (9, n_out) int32 (-1:
-// tap not taken), scratch max_parts x 27*cin*cout fp32 partials, out
-// (27, cin, cout) fp32.  1 <= nz <= 256.  Narrow (cin, cout <= 32): cp and
-// np the channel pitches 8, 16 or 32 (channels past cin, cout zero), both
-// 16-byte aligned.  Wide (cin or cout past 32, up to 128): cp = cin, np =
-// cout.  Returns a cudaError_t (0 = launched).
+// feats (R, nz*cp) and g (n_out, nz*np) fp32 at channel pitches cp and
+// np (channels past cin, cout zero), both 16-byte aligned; src (9, n_out)
+// int32 (-1: tap not taken), scratch max_parts x 27*cin*cout fp32
+// partials, out (27, cin, cout) fp32.  1 <= nz <= 256.  Narrow (cin, cout
+// <= 32): cp and np 8, 16 or 32.  Wide (cin or cout past 32): cp and np 32,
+// 64 or 128, and lists int32 scratch as the bf16 entry's.  Returns a
+// cudaError_t (0 = launched).
 extern "C" int sf_winfuse_wgrad_fp32(const void* feats, const int* src,
                                      const void* g, void* scratch,
-                                     int max_parts, void* out, int n_out,
-                                     int nz, int cp, int cin, int np,
-                                     int cout, void* stream) {
+                                     int max_parts, void* lists, void* out,
+                                     int n_out, int nz, int cp, int cin,
+                                     int np, int cout, void* stream) {
   const bool is_wide = cin > 32 || cout > 32;
-  auto pitch_ok = [](int p) { return p == 8 || p == 16 || p == 32; };
-  if (cin < 1 || cin > 128 || cout < 1 || cout > 128 || nz < 1 ||
-      nz > 256 || max_parts < 1 || n_out < 0 ||
-      (is_wide ? cp != cin || np != cout
-               : !pitch_ok(cp) || !pitch_ok(np) || cin > cp || cout > np))
+  auto pitch_ok = [is_wide](int p) {
+    return is_wide ? p == 32 || p == 64 || p == 128
+                   : p == 8 || p == 16 || p == 32;
+  };
+  if (!pitch_ok(cp) || !pitch_ok(np) || cin < 1 || cin > cp || cout < 1 ||
+      cout > np || nz < 1 || nz > 256 || max_parts < 1 || n_out < 0 ||
+      (is_wide && lists == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (!is_wide && (reinterpret_cast<uintptr_t>(feats) % 16 != 0 ||
-                   reinterpret_cast<uintptr_t>(g) % 16 != 0))
+  if (reinterpret_cast<uintptr_t>(feats) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(g) % 16 != 0)
     return static_cast<int>(cudaErrorMisalignedAddress);
   int sms = 0, grid = 0;
   cudaError_t err = sm_count(&sms);
@@ -776,10 +516,18 @@ extern "C" int sf_winfuse_wgrad_fp32(const void* feats, const int* src,
   float* part = static_cast<float*>(scratch);
   const float* f = static_cast<const float*>(feats);
   const float* gf = static_cast<const float*>(g);
-  if (err == cudaSuccess && is_wide)
-    err = fp32::launch(f, src, gf, part, max_parts, n_out, nz, cin, cout,
-                       sms, st, &grid);
-  else if (err == cudaSuccess && cp == 8)
+  int* li = static_cast<int*>(lists);
+  if (err == cudaSuccess && is_wide) {
+    if (cp == 32)
+      err = wide_tf32::by_np<32>(np, f, src, gf, part, max_parts, li, n_out,
+                                 nz, cin, cout, sms, st, &grid);
+    else if (cp == 64)
+      err = wide_tf32::by_np<64>(np, f, src, gf, part, max_parts, li, n_out,
+                                 nz, cin, cout, sms, st, &grid);
+    else
+      err = wide_tf32::by_np<128>(np, f, src, gf, part, max_parts, li, n_out,
+                                  nz, cin, cout, sms, st, &grid);
+  } else if (err == cudaSuccess && cp == 8)
     err = tf32::by_np<8>(np, f, src, gf, part, max_parts, n_out, nz, cin,
                          cout, sms, st, &grid);
   else if (err == cudaSuccess && cp == 16)

@@ -59,11 +59,11 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
             [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
     'winfuse': {'sf_winfuse_bf16': [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I,
                                     _P]},
-    'winfuse_fp32': {'sf_winfuse_fp32': [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                         _P]},
+    'winfuse_fp32': {'sf_winfuse_fp32': [_P, _P, _P, _P, _I, _I, _I, _I, _P,
+                                         _I, _I, _P]},
     'winfuse_wgrad': {
-        'sf_winfuse_wgrad_fp32': [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
-                                  _I, _I, _P],
+        'sf_winfuse_wgrad_fp32': [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
+                                  _I, _I, _I, _P],
         'sf_winfuse_wgrad_bf16': [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
                                   _I, _I, _I, _P]},
 }

@@ -21,10 +21,11 @@ csrc/winfuse.cu (bf16) or csrc/winfuse_fp32.cu (fp32); on a CPU tensor it
 takes the plain PyTorch version :func:`subm_conv_plain`.  There is no
 fallback from the kernel to the plain version.  bf16 features go to the
 tensor-core kernel, which takes its inputs as :func:`pitch_rows` and
-:func:`tap_weights` prepare them; fp32 features up to 32 channels to the
-tensor cores in 3xTF32 (each operand split into two TF32 pieces, three
-products a pair: fp32's order of error), on :func:`pitch_rows` and
-:func:`tf32_tap_weights`; fp32 past 32 channels to the CUDA cores
+:func:`tap_weights` prepare them; fp32 features to the tensor cores in
+3xTF32 (each operand split into two TF32 pieces, three products a pair:
+fp32's order of error), on :func:`pitch_rows` and :func:`tf32_tap_weights`.
+Past 32 channels in or out both types take the wide kernels, on
+:func:`wide_tap_weights` (bf16) or :func:`wide_tf32_tap_weights` (fp32)
 (:func:`route`).
 
 The gradient (:class:`WinfuseConv`) takes the taps its caller gives as
@@ -38,8 +39,7 @@ column_geometry).  d feats
 the cotangent over the reversed map (:func:`reverse_map`) with the weights
 flipped and transposed.  d weights (:func:`subm_conv_wgrad`) is the kernel
 csrc/winfuse_wgrad.cu on the card (its rows as :func:`wgrad_rows` prepares
-them: bf16 on the tensor cores, fp32 in 3xTF32; fp32 past 32 channels on
-the CUDA cores) and
+them: bf16 on the tensor cores, fp32 in 3xTF32) and
 :func:`subm_conv_wgrad_plain` on the CPU.
 """
 from __future__ import annotations
@@ -339,8 +339,8 @@ def subm_conv_wgrad(feats: torch.Tensor, nbr: torch.Tensor,
     On the card the kernel csrc/winfuse_wgrad.cu, the same sums in a fixed
     order (no float atomics: the same gradient from run to run): one GEMM a
     tap on the tensor cores, its depth the cotangent's nonzero (column, z)
-    rows, bf16 or fp32 in 3xTF32 (fp32 past 32 channels on the CUDA
-    cores).  On the CPU :func:`subm_conv_wgrad_plain`."""
+    rows, bf16 or fp32 in 3xTF32.  On the CPU
+    :func:`subm_conv_wgrad_plain`."""
     if feats.device.type == 'cpu':
         return subm_conv_wgrad_plain(feats, nbr, found, g, nz)
     if feats.device.type != 'cuda':
@@ -350,13 +350,13 @@ def subm_conv_wgrad(feats: torch.Tensor, nbr: torch.Tensor,
 
 
 def route(dtype: torch.dtype, cin: int = 1, cout: int = 1) -> str:
-    """Which units compute the kernel's products for features of ``dtype``
-    at these widths."""
-    if dtype == torch.bfloat16:
-        return 'tensor cores (mma.sync bf16, fp32 sums)'
-    if is_wide(cin, cout):
-        return 'CUDA cores (fp32 FMA)'
-    return 'tensor cores (mma.sync 3xTF32, fp32 sums)'
+    """Which units compute the kernel's products for features of ``dtype``,
+    and at these widths which kernel: the narrow one up to 32 channels,
+    the wide one past them."""
+    units = ('tensor cores (mma.sync bf16, fp32 sums)'
+             if dtype == torch.bfloat16 else
+             'tensor cores (mma.sync 3xTF32, fp32 sums)')
+    return units + (', wide kernel' if is_wide(cin, cout) else '')
 
 
 def channel_pitch(cin: int) -> int:
@@ -426,8 +426,8 @@ def tf32_tap_weights(weights: torch.Tensor, cp: int) -> torch.Tensor:
     return b[:, :, chan, 8 * nt + g].reshape(9, 3 * sz, n // 16, 32, 4)
 
 
-# z the wide forward's per-row activity masks cover (csrc/winfuse.cu's
-# wide::kMaxMaskZ; past it every z of a found column is read)
+# z the wide forwards' per-row activity masks cover (csrc/winfuse_masks.cuh's
+# rowmask::kMaxMaskZ; past it every z of a found column is read)
 WIDE_MASK_Z = 32
 
 
@@ -485,6 +485,73 @@ def _wide_order(cp: int, width: int, chunks: int,
         (chunks * width) + (chunk * width).view(-1, 1, 1, 1, 1, 1, 1, 1) + n
 
 
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """fp32 x rounded to TF32 as the kernels' cvt.rna.tf32.f32 does (10
+    stored mantissa bits, ties away from zero), on its int32 view: the sign
+    bit lies apart from the magnitude the carry runs through."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+# items (column, z) of a tile of the wide fp32 forward: 8 warps of 3 m16
+# fragments (csrc/winfuse_wide_tf32.cuh's kMaxItems)
+WIDE_TF32_ITEMS = 384
+
+
+def wide_tf32_groups(cout: int, nz: int) -> int:
+    """Groups of 64 output channels a block of the wide fp32 forward
+    computes: 2 where Cout passes 64 and a tile's items still fill the
+    fragments of half its warps (nz <= 192), else 1.  The one place of
+    this rule: B is laid out for it and the kernel is launched with it."""
+    return 2 if cout > 64 and nz <= WIDE_TF32_ITEMS // 2 else 1
+
+
+def wide_tf32_tap_weights(weights: torch.Tensor, cp: int,
+                          nz: int) -> torch.Tensor:
+    """(27, Cin, Cout) -> the wide fp32 forward's B, fp32 (chunks, 9, cp/32,
+    3, 4, width/8, 32, 4) for chunks of width = 64 * wide_tf32_groups(Cout,
+    nz) output channels: lane l = 4 g + t of k8 step s of row step (tap k,
+    32-channel block q) and z tap tz holds for n-tile nt
+
+        (hi(b0), hi(b1), lo(b0), lo(b1)),
+        b0 = weights[3k + tz, 32 q + ch[t, s], width chunk + 8 nt + g],
+        b1 = weights[3k + tz, 32 q + ch[t, 4 + s], width chunk + 8 nt + g]
+
+    (ch = ``tf32_channels(32)``, the narrow kernel's K order in each
+    32-channel block; zero past Cin and Cout), hi = :func:`tf32_rna` of the
+    value and lo = tf32_rna of the rest: the 3xTF32 split done once here
+    rather than by every warp.  Each (chunk, k, q, tz) is one contiguous
+    slab, in the order the kernel streams them.  One gather of the padded
+    (9, 3, cp, chunks*width) weights by a cached order."""
+    _, cin, cout = weights.shape
+    width = 64 * wide_tf32_groups(cout, nz)
+    chunks = -(-cout // width)
+    b = weights.new_zeros(9, 3, cp, chunks * width, dtype=torch.float32)
+    b[:, :, :cin, :cout] = weights.float().reshape(9, 3, cin, cout)
+    b = b.view(-1)[_wide_tf32_order(cp, width, chunks, weights.device)]
+    hi = tf32_rna(b)
+    return torch.cat([hi, tf32_rna(b - hi)], -1)
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_tf32_order(cp: int, width: int, chunks: int,
+                     device: torch.device) -> torch.Tensor:
+    """Flat indices into the padded (9, 3, cp, chunks*width) B of
+    :func:`wide_tf32_tap_weights`' (b0, b1) pairs, (chunks, 9, cp/32, 3, 4,
+    width/8, 32, 2) in their order."""
+    ch = tf32_channels(32).to(device)
+    shape = (chunks, 9, cp // 32, 3, 4, width // 8, 32, 2)
+
+    def axis(dim):
+        view = [1] * len(shape)
+        view[dim] = shape[dim]
+        return torch.arange(shape[dim], device=device).view(view)
+    chunk, tap, q, tz, s, nt, lane, word = (axis(d) for d in range(8))
+    i = 32 * q + ch[lane % 4, s + 4 * word]
+    n = width * chunk + 8 * nt + lane // 4
+    return ((tap * 3 + tz) * cp + i) * (chunks * width) + n
+
+
 def pitch_rows(feats: torch.Tensor, nz: int, cp: int) -> torch.Tensor:
     """Fused rows (R, nz*Cin) -> (R, nz*cp) with channels Cin .. cp - 1 zero,
     starting on 16 bytes: the rows themselves when they already are (Cin ==
@@ -511,7 +578,8 @@ def _check_rows(name, rows, nz, c):
 
 def _winfuse_cuda(feats, src, weights, nz):
     """K3 on the card: src (9, V) int32, a source row per tap, -1 where the
-    tap is not taken.  Past NARROW_CHANNELS in or out the wide kernels."""
+    tap is not taken.  Past NARROW_CHANNELS in or out the wide kernels
+    (bf16 or fp32), with a scratch of each source row's activity mask."""
     cin, cout = weights.shape[1], weights.shape[2]
     if not (1 <= cin <= MAX_CHANNELS and 1 <= cout <= MAX_CHANNELS):
         raise ValueError(f'winfuse kernel takes 1..{MAX_CHANNELS} channels '
@@ -525,30 +593,25 @@ def _winfuse_cuda(feats, src, weights, nz):
     src = src.contiguous()
     out = torch.empty(v, nz * cout, dtype=feats.dtype, device=feats.device)
     stream = torch.cuda.current_stream(feats.device).cuda_stream
-    if feats.dtype == torch.bfloat16:
-        if is_wide(cin, cout):
-            cp = wide_pitch(cin)
-            w = wide_tap_weights(weights, cp, nz)
-        else:
-            cp = channel_pitch(cin)
-            w = tap_weights(weights, cp)
-        rows = pitch_rows(feats, nz, cp)
-        # the wide kernel's scratch: each source row's activity mask
-        masks = torch.empty(rows.shape[0] if is_wide(cin, cout) and
-                            nz <= WIDE_MASK_Z else 1, dtype=torch.int32,
-                            device=feats.device)
-        err = cuda_lib.kernel('winfuse', 'sf_winfuse_bf16')(
-            rows.data_ptr(), src.data_ptr(), w.data_ptr(), out.data_ptr(), v,
-            nz, cp, cout, masks.data_ptr(), rows.shape[0], stream)
+    bf16, wide = feats.dtype == torch.bfloat16, is_wide(cin, cout)
+    if wide:
+        cp = wide_pitch(cin)
+        w = (wide_tap_weights if bf16 else wide_tf32_tap_weights)(weights,
+                                                                  cp, nz)
     else:
-        if is_wide(cin, cout):
-            cp, rows, w = cin, feats, weights.float().contiguous()
-        else:
-            cp = channel_pitch(cin)
-            rows, w = pitch_rows(feats, nz, cp), tf32_tap_weights(weights, cp)
-        err = cuda_lib.kernel('winfuse_fp32')(
-            rows.data_ptr(), src.data_ptr(), w.data_ptr(), out.data_ptr(), v,
-            nz, cp, cin, cout, stream)
+        cp = channel_pitch(cin)
+        w = (tap_weights if bf16 else tf32_tap_weights)(weights, cp)
+    rows = pitch_rows(feats, nz, cp)
+    masks = torch.empty(rows.shape[0] if wide and nz <= WIDE_MASK_Z else 1,
+                        dtype=torch.int32, device=feats.device)
+    args = (rows.data_ptr(), src.data_ptr(), w.data_ptr(), out.data_ptr(), v,
+            nz, cp, cout, masks.data_ptr(), rows.shape[0])
+    if bf16:
+        err = cuda_lib.kernel('winfuse', 'sf_winfuse_bf16')(*args, stream)
+    else:
+        # the groups B was laid out for: the kernel launches with them
+        ng = wide_tf32_groups(cout, nz) if wide else 1
+        err = cuda_lib.kernel('winfuse_fp32')(*args, ng, stream)
     cuda_lib.check('winfuse', err)
     return out
 
@@ -562,10 +625,10 @@ WGRAD_LIST_ITEMS = 2048
 
 
 def wgrad_rows(feats: torch.Tensor, g: torch.Tensor, nz: int):
-    """The d-weights kernels' rows (bf16, and fp32 up to 32 channels):
-    (feats at Cin's channel pitch cp, cp, g at Cout's pitch np, np), each
-    from :func:`pitch_rows` (the rows themselves where Cin or Cout already
-    is a pitch: 8, 16 or 32, or for the wide bf16 kernel 32, 64 or 128).
+    """The d-weights kernels' rows: (feats at Cin's channel pitch cp, cp,
+    g at Cout's pitch np, np), each from :func:`pitch_rows` (the rows
+    themselves where Cin or Cout already is a pitch: 8, 16 or 32, or for
+    the wide kernels 32, 64 or 128).
     Every z row then starts on 16 bytes, as the kernels' 16-byte copies and
     their fragment loads need."""
     cin, cout = feats.shape[1] // nz, g.shape[1] // nz
@@ -575,10 +638,13 @@ def wgrad_rows(feats: torch.Tensor, g: torch.Tensor, nz: int):
 
 
 def wgrad_pieces(cp: int, np_: int) -> int:
-    """Pieces of dW the wide bf16 d weights cut it into, one block row
-    each: per tap all three z taps where their (3*cp, np) fp32 sums fit 64
-    registers of 256 threads, else one z tap a piece (csrc/
-    winfuse_wgrad.cu's wide::Geo::kTZ)."""
+    """Pieces of dW the wide d weights cut it into, one block row each: per
+    tap all three z taps where their (3*cp, np) fp32 sums fit 64 registers
+    of 256 threads, else one z tap a piece (csrc/winfuse_wgrad.cu's
+    wide::Geo::kTZ and csrc/winfuse_wgrad_wide_tf32.cuh's
+    wide_tf32::Geo::kTZ).  The fp32 kernel keeps the bf16 rule and runs
+    one block an SM: its split operands take the registers a second block
+    would have."""
     return 9 if 3 * cp * np_ <= 64 * 256 else 27
 
 
@@ -595,17 +661,12 @@ def wgrad_list_ints(v: int, nz: int) -> int:
     return chunks * tv * nz + chunks
 
 
-def wgrad_parts(sms: int, cin: int, cout: int, bf16: bool) -> int:
+def wgrad_parts(sms: int, cin: int, cout: int) -> int:
     """Partial sums the d-weights kernels may write on a card of ``sms``
     multiprocessors: WGRAD_BLOCKS_PER_SM a multiprocessor, shared by the
-    block rows of the wide kernels (bf16: :func:`wgrad_pieces`; fp32: one
-    a 32 x 32 chunk of (Cin, Cout))."""
-    if not is_wide(cin, cout):
-        rows = 1
-    elif bf16:
-        rows = wgrad_pieces(wide_pitch(cin), wide_pitch(cout))
-    else:
-        rows = -(-cin // NARROW_CHANNELS) * -(-cout // NARROW_CHANNELS)
+    block rows of the wide kernels (:func:`wgrad_pieces`)."""
+    rows = (wgrad_pieces(wide_pitch(cin), wide_pitch(cout))
+            if is_wide(cin, cout) else 1)
     return max(1, WGRAD_BLOCKS_PER_SM * sms // rows)
 
 
@@ -631,28 +692,20 @@ def _wgrad_cuda(feats, nbr, found, g, nz):
     src = torch.where(found, nbr, -1).contiguous()
     dev = feats.device
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    max_parts = wgrad_parts(sms, cin, cout, feats.dtype == torch.bfloat16)
+    max_parts = wgrad_parts(sms, cin, cout)
     scratch = torch.empty(max_parts, 27 * cin * cout, dtype=torch.float32,
                           device=dev)
     out = torch.empty(27, cin, cout, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if feats.dtype == torch.bfloat16:
-        rows, cp, g_rows, np_ = wgrad_rows(feats, g, nz)
-        lists = torch.empty(wgrad_list_ints(v, nz) if is_wide(cin, cout)
-                            else 1, dtype=torch.int32, device=dev)
-        err = cuda_lib.kernel('winfuse_wgrad', 'sf_winfuse_wgrad_bf16')(
-            rows.data_ptr(), src.data_ptr(), g_rows.data_ptr(),
-            scratch.data_ptr(), max_parts, lists.data_ptr(), out.data_ptr(),
-            v, nz, cp, cin, np_, cout, stream)
-    else:
-        if is_wide(cin, cout):
-            rows, cp, g_rows, np_ = feats, cin, g, cout
-        else:
-            rows, cp, g_rows, np_ = wgrad_rows(feats, g, nz)
-        err = cuda_lib.kernel('winfuse_wgrad', 'sf_winfuse_wgrad_fp32')(
-            rows.data_ptr(), src.data_ptr(), g_rows.data_ptr(),
-            scratch.data_ptr(), max_parts, out.data_ptr(), v, nz, cp, cin,
-            np_, cout, stream)
+    rows, cp, g_rows, np_ = wgrad_rows(feats, g, nz)
+    lists = torch.empty(wgrad_list_ints(v, nz) if is_wide(cin, cout) else 1,
+                        dtype=torch.int32, device=dev)
+    symbol = ('sf_winfuse_wgrad_bf16' if feats.dtype == torch.bfloat16 else
+              'sf_winfuse_wgrad_fp32')
+    err = cuda_lib.kernel('winfuse_wgrad', symbol)(
+        rows.data_ptr(), src.data_ptr(), g_rows.data_ptr(),
+        scratch.data_ptr(), max_parts, lists.data_ptr(), out.data_ptr(), v,
+        nz, cp, cin, np_, cout, stream)
     cuda_lib.check('winfuse_wgrad', err)
     launches_wgrad += 1
     launches_wgrad_fp32 += feats.dtype == torch.float32

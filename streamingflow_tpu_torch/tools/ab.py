@@ -1,8 +1,8 @@
 """A/B of two checkouts of the port, in turns on one card.
 
     python3 streamingflow_tpu_torch/tools/ab.py ROOT_A ROOT_B \
-        [--backbone pillar8x|spconv8x|spconv8x_fp32] [--order ABBA] \
-        [--requests 10] [--train-steps 3] [--out FILE]
+        [--backbone pillar8x|spconv8x|spconv8x_fp32|spconv8x_fp32_tail0] \
+        [--order ABBA] [--requests 10] [--train-steps 3] [--out FILE]
 
 Each ROOT is a directory holding a ``streamingflow_tpu_torch`` package (this
 checkout, or an older one unpacked with ``git archive``).  For each letter
@@ -57,6 +57,18 @@ On ``spconv8x_fp32`` (the fp32 path: fp32 points, COMPUTE_DTYPE 'auto'):
     after one warm-up, peak memory, and K3's forward, d feats and d weights
     time and launches a step (CUDA events around each launch).
 
+On ``spconv8x_fp32_tail0`` (the fp32 path at DENSE_TAIL_FROM_STAGE 0,
+where stages 3 and 4 run on the wide K3 kernels):
+
+  - the wide K3 rows through their wrappers at stage 3 (64 -> 64, nz 11)
+    and stage 4 (128 -> 128, nz 5) of one request's 5 clouds
+    (``chip_smoke.k3_wide_inputs``), in fp32 and in bf16: the forward, d
+    feats and d weights for a cotangent from seed 7 zero at the inactive
+    sites, CUDA events over 5 calls (``k3_wide_[dgrad_|wgrad_][fp32_]
+    stage{3,4}_ms``);
+  - ``evaluate`` and the training step as ``spconv8x_fp32`` runs them,
+    both at DENSE_TAIL_FROM_STAGE 0.
+
 Run as a script, not as a module, so that each process imports the package
 under test and nothing else.  Prints one JSON line per turn and a summary
 line with the card's name and power limit; needs a CUDA card.
@@ -91,6 +103,10 @@ KEYS = {'pillar8x': ('k1_wrapper_ms', 'k1_kernel_ms', 'k2_bf16_ms',
                           'median_step_s', 'peak_gib',
                           'step_k3_forward_ms', 'step_k3_dgrad_ms',
                           'step_k3_wgrad_ms')}
+KEYS['spconv8x_fp32_tail0'] = (
+    *(f'k3_wide_{kind}{leg}stage{s}_ms' for leg in ('fp32_', '')
+      for kind in ('', 'dgrad_', 'wgrad_') for s in (3, 4)),
+    *KEYS['spconv8x_fp32'])
 
 
 def _event_ms(fn, reps=20, warmup=3):
@@ -187,7 +203,8 @@ class K3Clock:
     """CUDA events around each K3 launch of the package ``WF``
     (ops/winfuse.py) through its wrapper: the forward, d feats (the
     forward's kernels under ``subm_conv_dgrad``) and d weights, with
-    their launches by the rows' type.  Read with :meth:`take`."""
+    their launches by the rows' type.  Read with :meth:`take`; :meth:`close`
+    puts the wrapper's functions back."""
 
     def __init__(self, WF):
         import torch
@@ -196,6 +213,7 @@ class K3Clock:
         self.reset()
         fwd, dgrad, wgrad = WF._winfuse_cuda, WF.subm_conv_dgrad, \
             WF._wgrad_cuda
+        self._wrapped = (WF, fwd, dgrad, wgrad)
 
         def timed(fn, kind=None):
             def run(*a, **kw):
@@ -221,6 +239,11 @@ class K3Clock:
         WF.subm_conv_dgrad = in_dgrad
         WF._wgrad_cuda = timed(wgrad, 'wgrad')
 
+    def close(self):
+        WF, fwd, dgrad, wgrad = self._wrapped
+        WF._winfuse_cuda, WF.subm_conv_dgrad, WF._wgrad_cuda = \
+            fwd, dgrad, wgrad
+
     def reset(self):
         self.events = {k: [] for k in ('forward', 'dgrad', 'wgrad')}
         self.launches = {k: {} for k in self.events}
@@ -235,13 +258,65 @@ class K3Clock:
         return ms, launches
 
 
-def measure_spconv_fp32(root, tree, ckpt, n_steps):
-    """One turn of the fp32 path: the package under ``root``, evaluate on
-    the imported checkpoint ``ckpt`` over ``tree``, then the fp32 flagship
-    step, as the docstring says."""
-    sys.path.insert(0, os.path.abspath(root))
+def evaluate_main(E, checkpoint, dev, tail=None, forward=None):
+    """``E.main`` (the package's evaluate module) on ``checkpoint``, as the
+    CLI runs it, at DENSE_TAIL_FROM_STAGE ``tail`` where given, each
+    forecast through ``forward(eval_forward, *args, **kwargs)`` where
+    given: (results, the printed text)."""
     import contextlib
     import io
+    build, eval_forward = E.build_eval_state, E.eval_forward
+
+    def set_tail(cfg):
+        cfg.MODEL.SPARSE_ENCODER.DENSE_TAIL_FROM_STAGE = tail
+
+    def build_at_tail(args, cfg_mutator=None):
+        return build(args, cfg_mutator=cfg_mutator if tail is None
+                     else set_tail)
+    E.build_eval_state = build_at_tail
+    if forward is not None:
+        E.eval_forward = lambda *a, **kw: forward(eval_forward, *a, **kw)
+    text = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(text):
+            results = E.main(['--checkpoint', checkpoint, '--device',
+                              str(dev)])
+    finally:
+        E.build_eval_state, E.eval_forward = build, eval_forward
+    return results, text.getvalue()
+
+
+def _wide_rows(WF, dev):
+    """The wide K3 rows at stages 3 and 4, fp32 and bf16, as the docstring
+    says: {key: ms}."""
+    import torch
+    smoke = _smoke()
+    _, x = smoke.k3_inputs(dev)
+    result = {}
+    for key, (f, geo, w, nz, zm) in smoke.k3_wide_inputs(dev, x).items():
+        name, fp32 = key.split('_')[0], key.endswith('_fp32')
+        leg = 'fp32_' if fp32 else ''
+        rows, cout = geo.nbr.shape[1], w.shape[2]
+        gen = torch.Generator(device=dev).manual_seed(7)
+        g = (torch.randn(rows, nz, cout, device=dev, generator=gen) *
+             zm.reshape(rows, nz, 1)).reshape(rows, -1).to(f.dtype)
+        result[f'k3_wide_{leg}{name}_ms'] = _event_ms(
+            lambda: WF.subm_conv_winfuse(f, geo.nbr, geo.found, w, nz),
+            reps=5)
+        result[f'k3_wide_dgrad_{leg}{name}_ms'] = _event_ms(
+            lambda: WF.subm_conv_dgrad(g, geo.src_t, w, nz), reps=5)
+        result[f'k3_wide_wgrad_{leg}{name}_ms'] = _event_ms(
+            lambda: WF.subm_conv_wgrad(f, geo.nbr, geo.grad_found, g, nz),
+            reps=5)
+    return result
+
+
+def measure_spconv_fp32(root, tree, ckpt, n_steps, tail=None):
+    """One turn of the fp32 path: the package under ``root``, evaluate on
+    the imported checkpoint ``ckpt`` over ``tree``, then the fp32 flagship
+    step, as the docstring says; at DENSE_TAIL_FROM_STAGE ``tail`` where
+    given, and then first the wide K3 rows."""
+    sys.path.insert(0, os.path.abspath(root))
     import torch
     import streamingflow_tpu_torch as P
     from streamingflow_tpu_torch import evaluate as E
@@ -251,11 +326,12 @@ def measure_spconv_fp32(root, tree, ckpt, n_steps):
     _pin_tf32()
     dev = torch.device('cuda', 0)
     result = {'root': root, 'package': os.path.dirname(P.__file__)}
+    if tail is not None:
+        result.update(_wide_rows(WF, dev))
     clock = K3Clock(WF)
-    forward = E.eval_forward
     times, k3 = [], []
 
-    def timed_forward(*a, **kw):
+    def timed_forward(forward, *a, **kw):
         clock.take()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -264,12 +340,10 @@ def measure_spconv_fp32(root, tree, ckpt, n_steps):
         times.append(time.perf_counter() - t0)
         k3.append(clock.take())
         return out
-    E.eval_forward = timed_forward
     for _ in range(2):
         times.clear()
         k3.clear()
-        with contextlib.redirect_stdout(io.StringIO()):
-            E.main(['--checkpoint', ckpt, '--device', str(dev)])
+        evaluate_main(E, ckpt, dev, tail, timed_forward)
     if hasattr(dataloader, 'stop_worker_server'):
         dataloader.stop_worker_server()
     result.update(
@@ -281,6 +355,8 @@ def measure_spconv_fp32(root, tree, ckpt, n_steps):
 
     cfg = flagship_config(backbone='spconv8x')
     cfg.MODEL.SPARSE_ENCODER.COMPUTE_DTYPE = 'auto'
+    if tail is not None:
+        cfg.MODEL.SPARSE_ENCODER.DENSE_TAIL_FROM_STAGE = tail
     trainer = P.build_trainer(cfg, device=dev, seed=0)
 
     def step(seed):
@@ -439,9 +515,10 @@ def main(argv=None):
     ap.add_argument('--checkpoint', default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.measure is not None:
-        if args.backbone == 'spconv8x_fp32':
-            result = measure_spconv_fp32(args.measure, args.tree,
-                                         args.checkpoint, args.train_steps)
+        if args.backbone.startswith('spconv8x_fp32'):
+            result = measure_spconv_fp32(
+                args.measure, args.tree, args.checkpoint, args.train_steps,
+                0 if args.backbone.endswith('tail0') else None)
         elif args.backbone == 'spconv8x':
             result = measure_spconv(args.measure, args.requests)
         else:
@@ -455,7 +532,7 @@ def main(argv=None):
          '--format=csv,noheader'], capture_output=True, text=True,
         timeout=60).stdout.strip()
     extra, tmp = [], None
-    if args.backbone == 'spconv8x_fp32':
+    if args.backbone.startswith('spconv8x_fp32'):
         # the tree and the imported checkpoint, once, on the CPU
         tmp = tempfile.mkdtemp(prefix='ab_fp32_')
         tree = os.path.join(tmp, 'nuscenes')

@@ -29,55 +29,11 @@ import torch
 
 from streamingflow_tpu_torch.ops import winfuse as WF
 
+from torch_parity import fp32_column_inputs as _inputs
+from torch_parity import mma3, tf32_rna
+from torch_parity import tf32_split as split
+
 MAX_SMEM = 232448                      # bytes a block may have on an H100
-
-
-def tf32_rna(x: torch.Tensor) -> torch.Tensor:
-    """x (fp32) rounded to TF32 as cvt.rna.tf32.f32 does: 10 stored
-    mantissa bits, ties away from zero, on the int32 view (the sign bit
-    is apart from the magnitude the carry runs through)."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def split(x):
-    hi = tf32_rna(x)
-    return hi, tf32_rna(x - hi)
-
-
-def mma3(acc, a, b):
-    """acc += a @ b as the kernels' three mma a k8 step do it (fp32
-    accumulators, the small terms first)."""
-    ah, al = split(a)
-    bh, bl = split(b)
-    acc += al @ bh
-    acc += ah @ bl
-    acc += ah @ bh
-    return acc
-
-
-def _inputs(cin, cout, nz, n_cols, seed, density=0.3):
-    """fp32 rows zero at inactive sites, as on the main path; a source row
-    read by one column a tap at most; a column with no tap and a tap no
-    column has."""
-    rng = np.random.default_rng(seed)
-    rows = n_cols + 5
-    act = rng.random((rows, nz)) < density
-    act[:, 0] = act[:, -1] = True         # real values next to the z edges
-    feats = rng.standard_normal((rows, nz, cin)).astype(np.float32) * \
-        act[..., None]
-    nbr = np.stack([rng.permutation(rows)[:n_cols] for _ in range(9)])
-    found = rng.random((9, n_cols)) < 0.7
-    found[:, 3] = False
-    found[4, :] = False
-    w = rng.standard_normal((27, cin, cout)).astype(np.float32) * \
-        (27 * cin) ** -0.5
-    g = rng.standard_normal((n_cols, nz, cout)).astype(np.float32) * \
-        (rng.random((n_cols, nz, 1)) < density)
-    g[g == 0] = -0.0                      # the masked cotangent's -0
-    return (torch.from_numpy(feats.reshape(rows, -1)),
-            torch.from_numpy(nbr).int(), torch.from_numpy(found),
-            torch.from_numpy(w), torch.from_numpy(g.reshape(n_cols, -1)))
 
 
 def _rounds(tile, nz):

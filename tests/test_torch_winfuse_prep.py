@@ -142,11 +142,13 @@ def test_prepared_walk_matches_plain(cin, nz):
 
 def test_route_by_dtype():
     assert WF.route(torch.bfloat16).startswith('tensor cores')
-    # fp32 up to 32 channels in 3xTF32 on the tensor cores, past them on
-    # the CUDA cores
+    # fp32 in 3xTF32 on the tensor cores at every width: the narrow kernel
+    # up to 32 channels, the wide one past them
     assert WF.route(torch.float32, 32, 32).startswith('tensor cores')
     assert '3xTF32' in WF.route(torch.float32, 16, 32)
-    assert WF.route(torch.float32, 64, 64).startswith('CUDA cores')
+    assert WF.route(torch.float32, 64, 64) == \
+        'tensor cores (mma.sync 3xTF32, fp32 sums), wide kernel'
+    assert 'wide' not in WF.route(torch.float32, 32, 32)
 
 
 def _staged_w_s(b, cp, nt):

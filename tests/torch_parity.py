@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from streamingflow_tpu_torch.convert import load_flax_variables, state_to_flax
+from streamingflow_tpu_torch.ops.winfuse import tf32_rna
 
 # the suite runs in several worker processes at once: two intra-op threads
 # each keep them from contending for the cores
@@ -147,3 +148,48 @@ def assert_close(got, want, tol, what=''):
 
 def jnp_tree(batch):
     return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def tf32_split(x):
+    """The 3xTF32 kernels' split of fp32 x: (hi, lo), hi its TF32 rounding
+    and lo the rest rounded the same way."""
+    hi = tf32_rna(x)
+    return hi, tf32_rna(x - hi)
+
+
+def mma3(acc, a, b):
+    """acc += a @ b as K3's 3xTF32 kernels' three mma a k8 step do it (fp32
+    accumulators, the small terms first); b may come split, as (hi, lo)."""
+    ah, al = tf32_split(a)
+    bh, bl = b if isinstance(b, tuple) else tf32_split(b)
+    acc += al @ bh
+    acc += ah @ bl
+    acc += ah @ bh
+    return acc
+
+
+def fp32_column_inputs(cin, cout, nz, n_cols, seed, density=0.3):
+    """K3's inputs in fp32 for the kernel walks: rows zero at inactive
+    sites, as on the main path; a source row read by one column a tap at
+    most; a column with no tap and a tap no column has; a cotangent zero
+    (-0, as the masked one) at inactive output sites.  (feats (R, nz*Cin),
+    nbr (9, V) int32, found (9, V) bool, w (27, Cin, Cout), g (V,
+    nz*Cout))."""
+    rng = np.random.default_rng(seed)
+    rows = n_cols + 5
+    act = rng.random((rows, nz)) < density
+    act[:, 0] = act[:, -1] = True         # real values next to the z edges
+    feats = rng.standard_normal((rows, nz, cin)).astype(np.float32) * \
+        act[..., None]
+    nbr = np.stack([rng.permutation(rows)[:n_cols] for _ in range(9)])
+    found = rng.random((9, n_cols)) < 0.7
+    found[:, 3] = False
+    found[4, :] = False
+    w = rng.standard_normal((27, cin, cout)).astype(np.float32) * \
+        (27 * cin) ** -0.5
+    g = rng.standard_normal((n_cols, nz, cout)).astype(np.float32) * \
+        (rng.random((n_cols, nz, 1)) < density)
+    g[g == 0] = -0.0                      # the masked cotangent's -0
+    return (torch.from_numpy(feats.reshape(rows, -1)),
+            torch.from_numpy(nbr).int(), torch.from_numpy(found),
+            torch.from_numpy(w), torch.from_numpy(g.reshape(n_cols, -1)))
